@@ -1,0 +1,2 @@
+"""CUDA kernels for Hopper (``csrc/``), their wrappers, their plain PyTorch
+versions (``ref.py``) and the device dispatch (``ops.py``)."""

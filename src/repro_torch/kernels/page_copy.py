@@ -1,0 +1,97 @@
+"""Wrappers of the CUDA page-copy kernels (``csrc/page_copy.cu``).
+
+``page_move`` and ``page_copy`` replace the reference's Pallas kernels of
+the same names. They take CUDA tensors only: each checks device, dtype,
+shape and contiguity, allocates its scratch with ``torch.empty``, launches
+on the current stream, raises if the launch failed, and counts its launches
+in ``LAUNCHES``. ``kernels/ops.py`` sends CPU tensors to the plain versions
+in ``kernels/ref.py`` instead.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+LAUNCHES = {"page_move": 0, "page_copy": 0}
+
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+def _lib():
+    lib = _build.load("page_copy")
+    if not getattr(lib, "_typed", False):
+        lib.page_move.argtypes = [_P, _LL, _P, _P, _I, _LL, _P, _P]
+        lib.page_move.restype = _I
+        lib.page_copy.argtypes = [_P, _LL, _P, _LL, _P, _P, _I, _LL, _P]
+        lib.page_copy.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _check_pool(name: str, pool: torch.Tensor) -> None:
+    if not pool.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {pool.device}")
+    if pool.dim() != 2 or not pool.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 2-D [rows, elems] tensor")
+
+
+def _check_ids(name: str, ids: torch.Tensor, device: torch.device, m: int) -> None:
+    if ids.device != device or ids.dtype != torch.int32 or ids.dim() != 1:
+        raise ValueError(f"{name} must be a 1-D int32 tensor on {device}")
+    if not ids.is_contiguous() or ids.shape[0] != m:
+        raise ValueError(f"{name} must be contiguous with {m} entries")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def page_move(pool: torch.Tensor, src_ids: torch.Tensor, dst_ids: torch.Tensor) -> torch.Tensor:
+    """In place ``pool[dst_ids[i]] = pool[src_ids[i]]`` with gather
+    semantics (every read sees the pre-plan pool). Returns ``pool``."""
+    _check_pool("pool", pool)
+    m = src_ids.shape[0]
+    _check_ids("src_ids", src_ids, pool.device, m)
+    _check_ids("dst_ids", dst_ids, pool.device, m)
+    row_bytes = pool.shape[1] * pool.element_size()
+    scratch = torch.empty((m, row_bytes), dtype=torch.uint8, device=pool.device)
+    stream = torch.cuda.current_stream(pool.device).cuda_stream
+    err = _lib().page_move(
+        pool.data_ptr(), pool.shape[0], src_ids.data_ptr(), dst_ids.data_ptr(), m,
+        row_bytes, scratch.data_ptr(), stream,
+    )
+    LAUNCHES["page_move"] += 1
+    _raise_on(err, "page_move launch failed")
+    return pool
+
+
+def page_copy(
+    src_pool: torch.Tensor, dst_pool: torch.Tensor, src_ids: torch.Tensor, dst_ids: torch.Tensor
+) -> torch.Tensor:
+    """In place ``dst_pool[dst_ids[i]] = src_pool[src_ids[i]]``. Returns
+    ``dst_pool``; rows written by several entries (trash padding) end with
+    one of them, unspecified which."""
+    _check_pool("src_pool", src_pool)
+    _check_pool("dst_pool", dst_pool)
+    if src_pool.device != dst_pool.device or src_pool.dtype != dst_pool.dtype:
+        raise ValueError("src_pool and dst_pool must share device and dtype")
+    if src_pool.shape[1] != dst_pool.shape[1]:
+        raise ValueError("src_pool and dst_pool must have the same row width")
+    if src_pool.data_ptr() == dst_pool.data_ptr():
+        raise ValueError("page_copy needs two pools; use page_move within one")
+    m = src_ids.shape[0]
+    _check_ids("src_ids", src_ids, dst_pool.device, m)
+    _check_ids("dst_ids", dst_ids, dst_pool.device, m)
+    row_bytes = dst_pool.shape[1] * dst_pool.element_size()
+    stream = torch.cuda.current_stream(dst_pool.device).cuda_stream
+    err = _lib().page_copy(
+        src_pool.data_ptr(), src_pool.shape[0], dst_pool.data_ptr(), dst_pool.shape[0],
+        src_ids.data_ptr(), dst_ids.data_ptr(), m, row_bytes, stream,
+    )
+    LAUNCHES["page_copy"] += 1
+    _raise_on(err, "page_copy launch failed")
+    return dst_pool

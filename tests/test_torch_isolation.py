@@ -1,0 +1,105 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, runs on
+the card unless asked for the CPU, and has no silent fallback. This file
+imports no JAX either, so its ``cuda`` test runs on a machine with only
+PyTorch."""
+import ast
+import os
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_files():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_and_no_reference_imports(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_manager_defaults_to_the_card(monkeypatch):
+    from repro_torch.core.manager import CentralManager
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CentralManager(num_pages=16, fast_capacity=4, migration_budget=4)
+    m = CentralManager(num_pages=16, fast_capacity=4, migration_budget=4, device="cpu")
+    assert m.device.type == "cpu"
+
+
+def test_kernel_wrappers_take_cuda_tensors_only():
+    from repro_torch.kernels import hot_bins, page_copy
+
+    pool = torch.zeros(4, 8)
+    ids = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        page_copy.page_move(pool, ids, ids)
+    with pytest.raises(ValueError, match="CUDA"):
+        page_copy.page_copy(pool.clone(), pool, ids, ids)
+    with pytest.raises(ValueError, match="CUDA"):
+        hot_bins.hot_bins(ids, torch.zeros(4, dtype=torch.int32))
+
+
+def test_dispatch_is_by_device_with_no_override(monkeypatch):
+    from repro_torch.kernels import ops
+
+    monkeypatch.setenv("REPRO_FORCE_PALLAS", "1")
+    before = ops.launch_counts()
+    pool = torch.arange(12.0).reshape(4, 3)
+    out = ops.page_move(pool, torch.tensor([0], dtype=torch.int32),
+                        torch.tensor([2], dtype=torch.int32))
+    assert out[2].tolist() == [0.0, 1.0, 2.0]
+    assert ops.launch_counts() == before  # the plain version launches nothing
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.page_move(torch.zeros(2, 2, device="meta"), torch.zeros(1, dtype=torch.int32),
+                      torch.zeros(1, dtype=torch.int32))
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
+        _build.build(["page_copy"])
+    assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.cuda
+def test_cuda_request_without_a_build_raises(monkeypatch, tmp_path):
+    """On the card, a kernel that cannot be built raises; nothing falls back
+    to the plain version. Needs a GPU: skipped where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device to request a kernel launch")
+    from repro_torch.kernels import _build, ops
+
+    cuda = torch.device("cuda")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "empty")
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    real_exists = os.path.exists
+    monkeypatch.setattr(_build.os.path, "exists",
+                        lambda p: False if str(p).endswith("nvcc") else real_exists(p))
+    pool = torch.zeros(4, 8, device=cuda)
+    ids = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(_build.KernelCompileError):
+        ops.page_move(pool, ids, ids)
