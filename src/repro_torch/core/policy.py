@@ -68,7 +68,6 @@ from repro_torch.core.types import (
     QueueStats,
     TenantState,
 )
-from repro_torch.kernels import ops
 
 # Effective counts at or above this value share one histogram bucket.
 COUNT_CLAMP = 4096
@@ -414,18 +413,6 @@ def _inflight_mask(state: PolicyState) -> Optional[torch.Tensor]:
     return _set_where(torch.zeros(P, dtype=torch.bool, device=idx.device), idx, True)
 
 
-def heat_bins(pages: PageState, tenants: TenantState, num_bins: int) -> torch.Tensor:
-    """Heat bin of every page's effective count, through the ``hot_bins``
-    kernel (no new ids: the counts are already accumulated). A u32 count is
-    clamped to 2^31 - 1 for the kernel's int32 counters; bins saturate at
-    ``num_bins - 1 <= 31`` long before that, so the bins equal
-    ``bins.bin_of`` of the unclamped counts."""
-    eff = bins.effective_count(pages, tenants)
-    counts = torch.clamp(eff, max=INT32_MAX).to(torch.int32)
-    ids = torch.empty(0, dtype=torch.int32, device=counts.device)
-    return ops.hot_bins(ids, counts, num_bins=num_bins)[1].to(_I64)
-
-
 def _queue_tick(
     queue: MigrationQueue,
     plan: MigrationPlan,
@@ -448,7 +435,7 @@ def _queue_tick(
     P = pages.tier.shape[0]
     dev = pages.tier.device
 
-    heat_bin = heat_bins(pages, tenants, params.num_bins)
+    heat_bin = bins.bin_of(bins.effective_count(pages, tenants), params.num_bins)
 
     # ---- thrashing / ownership guard on the in-flight entries ------------
     occupied = queue.page >= 0
