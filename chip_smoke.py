@@ -15,7 +15,19 @@ Phases, one line of numbers each:
      table, queue conservation, the sentinel words and the hot-set fast
      share are checked, and each kernel's launches on this path counted;
   4. the same manager schedule with exact sampling at 65,536 pages on the
-     card and on the CPU, compared leaf by leaf.
+     card and on the CPU, compared leaf by leaf;
+  5. the serving slice, ``serve-yi6b``: yi-6b at full width and depth (32
+     layers, bf16 weights from a seed) over a bf16 tiered paged KV pool of
+     512 fast + 4,096 slow 16-token pages, ``ServingEngine`` at batch 32
+     under an ``OpenLoopDriver`` with two tenants, 24 warm-up and 256 timed
+     steps; every prefill goes through ``flash_attention``, every decode
+     step through ``paged_attention``, every migrating epoch through
+     ``page_move``, and the slice's invariants are checked;
+  6. the same slice at full width cut to 2 layers in float32, on the card
+     and on the CPU with the same weights: logits, greedy tokens, per-step
+     access counts, manager state and the slot map compared.
+Phase 2 also holds ``paged_attention`` and ``flash_attention`` against their
+plain versions, in float32 and bfloat16, at phase 5's shapes.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises, and
 the script then exits non-zero without printing a result. It needs a CUDA
@@ -31,6 +43,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 bandwidth
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:21
 SEED = 20231201
 
 # The slice's deployment: the scale bench's 1M-page headline geometry
@@ -448,6 +463,404 @@ def gpu_vs_cpu(torch, np):
     return ints_equal, ulp, g["counters"]
 
 
+# ------------------------------------------------- phase 2, attention kernels
+# the serving slice's shapes: yi-6b's heads, 16-token pages, a 32-entry
+# Quest table over the 4,608-slot pool, a 1,024-token prefill
+PA_B, PA_NH, PA_NKV, PA_DH, PA_PAGE, PA_NP, PA_SLOTS = 32, 32, 4, 128, 16, 32, 4608
+FA_S = 1024
+
+
+def paged_inputs(torch, np, dtype, device):
+    """A decode batch as the main path builds it: 31 selected full pages
+    (a few -1 holes) and the current page holding 1..16 tokens."""
+    rng = np.random.default_rng(SEED + 2)
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 2)
+    q = torch.randn((PA_B, PA_NH, PA_DH), generator=g, device=device).to(dtype)
+    shape = (PA_SLOTS, PA_PAGE, PA_NKV, PA_DH)
+    kp = torch.randn(shape, generator=g, device=device).to(dtype)
+    vp = torch.randn(shape, generator=g, device=device).to(dtype)
+    tables = np.stack([rng.choice(PA_SLOTS, PA_NP, replace=False) for _ in range(PA_B)])
+    tables[rng.random(tables.shape) < 0.05] = -1
+    tables[:, -1] = rng.choice(PA_SLOTS, PA_B)
+    lens = (PA_NP - 1) * PA_PAGE + rng.integers(1, PA_PAGE + 1, PA_B)
+    return (q, kp, vp, torch.as_tensor(tables.astype(np.int32), device=device),
+            torch.as_tensor(lens.astype(np.int32), device=device))
+
+
+def paged_bytes(np, tables, lens, itemsize: int) -> int:
+    """Bytes the call must move: the valid K and V rows of each lane's
+    pages, q, the output, the tables and lengths."""
+    t, n = tables.cpu().numpy(), lens.cpu().numpy()
+    p = np.arange(t.shape[1])[None, :]
+    valid = np.clip(n[:, None] - p * PA_PAGE, 0, PA_PAGE) * (t >= 0)
+    kv = 2 * int(valid.sum()) * PA_NKV * PA_DH * itemsize
+    return kv + 2 * PA_B * PA_NH * PA_DH * itemsize + 4 * t.size + 4 * n.size
+
+
+def attention_checks(torch, np, device):
+    """``paged_attention`` and ``flash_attention`` against their plain
+    versions in float32 and bfloat16 at the slice's shapes, with times."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    out = {}
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        tol = ATTN_TOL[dname]
+        q, kp, vp, tables, lens = paged_inputs(torch, np, dtype, device)
+        got = ops.paged_attention(q, kp, vp, tables, lens)
+        want = ref.paged_attention_ref(q, kp, vp, tables, lens)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)),
+              f"paged_attention {dname} within {tol} of its plain version (max err {err})")
+
+        def library():
+            # two calls: gather the tables' pages, then masked SDPA
+            t = tables.clamp(min=0).long()
+            k = kp[t].reshape(PA_B, -1, PA_NKV, PA_DH).transpose(1, 2)
+            v = vp[t].reshape(PA_B, -1, PA_NKV, PA_DH).transpose(1, 2)
+            pos = torch.arange(PA_NP * PA_PAGE, device=device)
+            mask = (pos[None, :] < lens[:, None]) & (tables >= 0).repeat_interleave(PA_PAGE, 1)
+            return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                                  attn_mask=mask[:, None, None, :],
+                                                  enable_gqa=True)
+
+        out[f"paged_attention {dname}"] = dict(
+            max_abs_err=err, tol=tol,
+            ms=time_cuda(torch, lambda: ops.paged_attention(q, kp, vp, tables, lens)),
+            device_ms=device_ms(torch, lambda: ops.paged_attention(q, kp, vp, tables, lens)),
+            plain_ms=time_cuda(torch, lambda: ref.paged_attention_ref(q, kp, vp, tables, lens)),
+            library_ms=time_cuda(torch, library),
+            bound_ms=bound_ms(paged_bytes(np, tables, lens, q.element_size())),
+            bound_by="bytes", library="gather+sdpa (two calls)",
+        )
+        del kp, vp
+
+        g = torch.Generator(device=device)
+        g.manual_seed(SEED + 3)
+        qf = torch.randn((1, PA_NH, FA_S, PA_DH), generator=g, device=device).to(dtype)
+        kf = torch.randn((1, PA_NKV, FA_S, PA_DH), generator=g, device=device).to(dtype)
+        vf = torch.randn((1, PA_NKV, FA_S, PA_DH), generator=g, device=device).to(dtype)
+        got = ops.flash_attention(qf, kf, vf, causal=True)
+        want = ref.flash_attention_ref(qf, kf, vf, causal=True)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)),
+              f"flash_attention {dname} within {tol} of its plain version (max err {err})")
+        flops = 4 * PA_NH * PA_DH * FA_S * (FA_S + 1) // 2  # the causal pairs only
+        nbytes = (2 * PA_NH + 2 * PA_NKV) * FA_S * PA_DH * qf.element_size()
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        by_ops = flops / peak * 1e3
+        out[f"flash_attention {dname}"] = dict(
+            max_abs_err=err, tol=tol,
+            ms=time_cuda(torch, lambda: ops.flash_attention(qf, kf, vf, causal=True)),
+            device_ms=device_ms(torch, lambda: ops.flash_attention(qf, kf, vf, causal=True)),
+            plain_ms=time_cuda(torch, lambda: ref.flash_attention_ref(qf, kf, vf, causal=True)),
+            library_ms=time_cuda(torch, lambda: F.scaled_dot_product_attention(
+                qf, kf, vf, is_causal=True, enable_gqa=True)),
+            bound_ms=max(by_ops, bound_ms(nbytes)),
+            bound_by="operations" if by_ops >= bound_ms(nbytes) else "bytes",
+            library="sdpa(is_causal, enable_gqa)",
+        )
+        torch.cuda.empty_cache()
+    for name, r in out.items():
+        emit(f"phase2 {name}", **{k: (v.replace(" ", "_") if isinstance(v, str) else v)
+                                  for k, v in r.items()})
+    return out
+
+
+# ------------------------------------------------------------------ phase 5
+# serve-yi6b: launch/serve.py's manager settings in queue mode, as in
+# benchmarks/serving_colocation.py, at yi-6b's full width and depth
+SV_PAGE, SV_FAST, SV_SLOW = 16, 512, 4096
+SV_BATCH, SV_PER_SEQ, SV_QUEST, SV_EPOCH = 32, 96, 32, 8
+SV_WARMUP, SV_STEPS = 24, 256
+SV_TENANTS = (("ls", 0.1, 0.10, 512, 128), ("be", 1.0, 0.15, 1024, 256))
+
+
+def serving_stack(torch, cfg, params, device, *, kv_dtype, n_fast, n_slow, batch, per_seq,
+                  quest, epoch, queue, bandwidth, budget):
+    from repro_torch.core.manager import CentralManager
+    from repro_torch.kvcache.paged import TieredPagedKV
+    from repro_torch.serving.engine import ServingEngine
+
+    manager = CentralManager(
+        num_pages=n_fast + n_slow, fast_capacity=n_fast, migration_budget=budget,
+        queue_size=queue, migration_bandwidth=bandwidth, max_tenants=4, sample_period=1,
+        exact_sampling=True, seed=SEED, device=device,
+    )
+    kv = TieredPagedKV(cfg, n_fast, n_slow, page_tokens=SV_PAGE, dtype=kv_dtype, device=device)
+    return ServingEngine(cfg, params, manager, kv, max_batch=batch, pages_per_seq=per_seq,
+                         quest_pages=quest, epoch_steps=epoch)
+
+
+def bits(torch, t):
+    """A tensor's bits as integers of its width, for bit-equality."""
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def live_pages(eng):
+    return [p for r in eng.lanes if r is not None for p in r.pages]
+
+
+def guard_migrations(torch, eng, stats, layer_ms):
+    """Wrap the KV cache's ``migrate`` so that every live request's pages
+    read back bit-equal (``read_page``) before and after each epoch that
+    moves pages. The time the check takes is kept apart in ``stats``; the
+    migration's own goes to ``layer_ms["migrate_ms"]``."""
+    kv = eng.kv
+    inner = timed(torch, kv.migrate, layer_ms, "migrate_ms")
+
+    def migrate(plan, manager):
+        t0 = time.perf_counter()
+        before = {p: kv.read_page(p) for p in live_pages(eng)}
+        stats["check_s"] += time.perf_counter() - t0
+        moved = inner(plan, manager)
+        t0 = time.perf_counter()
+        if moved:
+            for p, (k0, v0) in before.items():
+                k1, v1 = kv.read_page(p)
+                check(torch.equal(bits(torch, k0), bits(torch, k1))
+                      and torch.equal(bits(torch, v0), bits(torch, v1)),
+                      f"live page {p} reads back bit-equal across a migrating epoch")
+            stats["checked_epochs"] += 1
+            stats["checked_pages"] += len(before)
+        stats["check_s"] += time.perf_counter() - t0
+        return moved
+
+    kv.migrate = migrate
+
+
+def timed(torch, fn, stats, key):
+    """``fn`` with its synchronised wall time appended to ``stats[key]``."""
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        stats[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    return run
+
+
+def time_layers(torch, eng, stats):
+    """Time the engine's layers per call: prefill (the model forward), the
+    prompt's page writes, the decode step and the MaxMem epoch (the KV
+    migration is timed in ``guard_migrations``)."""
+    import dataclasses
+
+    from repro_torch.serving import engine as engine_mod
+
+    eng.api = dataclasses.replace(eng.api, prefill=timed(torch, eng.api.prefill, stats,
+                                                         "prefill_ms"))
+    eng.kv.write_tokens = timed(torch, eng.kv.write_tokens, stats, "write_ms")
+    eng.manager.run_epoch = timed(torch, eng.manager.run_epoch, stats, "epoch_ms")
+    engine_mod.paged_decode_step = timed(torch, engine_mod.paged_decode_step, stats,
+                                         "decode_ms")
+
+
+def freed_slots_clean(torch, np, eng, chunk: int = 256) -> bool:
+    """Every slot held by an unallocated logical page is zero with ±inf
+    summaries."""
+    kv = eng.kv
+    free = kv.slot_of[np.flatnonzero(eng.manager.owners() < 0)]
+    for lo in range(0, len(free), chunk):
+        s = torch.as_tensor(free[lo : lo + chunk].astype(np.int64), device=kv.device)
+        if (kv.k_pool[:, s].any() or kv.v_pool[:, s].any()
+                or not bool((kv.k_max[:, s] == -torch.inf).all())
+                or not bool((kv.k_min[:, s] == torch.inf).all())):
+            return False
+    return True
+
+
+def run_serving(torch, np, device):
+    """serve-yi6b end to end; returns its numbers (raises on a failed check)."""
+    from collections import deque
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import get_model
+    from repro_torch.serving.driver import OpenLoopDriver, TenantSpec
+
+    cfg = get_config("yi-6b")
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(seed=SEED, device=device)
+    eng = serving_stack(torch, cfg, params, device, kv_dtype=torch.bfloat16, n_fast=SV_FAST,
+                        n_slow=SV_SLOW, batch=SV_BATCH, per_seq=SV_PER_SEQ, quest=SV_QUEST,
+                        epoch=SV_EPOCH, queue=1024, bandwidth=128, budget=128)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    stats = {"check_s": 0.0, "checked_epochs": 0, "checked_pages": 0}
+    layer_ms = {k: [] for k in ("prefill_ms", "write_ms", "decode_ms", "epoch_ms", "migrate_ms")}
+    guard_migrations(torch, eng, stats, layer_ms)
+    time_layers(torch, eng, layer_ms)
+    driver = OpenLoopDriver(eng, [TenantSpec(*t) for t in SV_TENANTS], seed=SEED)
+    finite = torch.ones((), dtype=torch.bool, device=device)
+
+    def drive(n):
+        nonlocal finite
+        ms = []
+        for _ in range(n):
+            c0 = stats["check_s"]
+            t0 = time.perf_counter()
+            driver.run(1)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0 - (stats["check_s"] - c0)) * 1e3)
+            if eng.last_logits is not None:
+                finite &= torch.isfinite(eng.last_logits).all()
+        return ms
+
+    ops.reset_launch_counts()
+    epochs0 = len(eng._epoch_log)
+    drive(SV_WARMUP)
+    tok0 = eng.decode_tokens
+    n0 = {k: len(v) for k, v in layer_ms.items()}
+    step_ms = drive(SV_STEPS)
+    timed_calls = {k: v[n0[k]:] for k, v in layer_ms.items()}
+    launches = ops.launch_counts()
+    timed_s = sum(step_ms) / 1e3
+    moved_epochs = sum(1 for e in eng._epoch_log[epochs0:] if e["moved"] > 0)
+
+    check(bool(finite), "every logit finite")
+    check(launches["paged_attention"] == eng.decode_steps * cfg.num_layers,
+          f"paged_attention launches {launches['paged_attention']} = "
+          f"{eng.decode_steps} decode steps x {cfg.num_layers}")
+    check(launches["flash_attention"] == eng.prefills * cfg.num_layers,
+          f"flash_attention launches {launches['flash_attention']} = "
+          f"{eng.prefills} prefills x {cfg.num_layers}")
+    check(launches["page_move"] == 4 * moved_epochs,
+          f"page_move launches {launches['page_move']} = 4 x {moved_epochs} migrating epochs")
+    check(moved_epochs > 0 and stats["checked_epochs"] == moved_epochs,
+          "pages migrated and every migrating epoch checked")
+    check(sorted(eng.kv.slot_of.tolist()) == list(range(eng.kv.n_slots)),
+          "slot_of is a permutation")
+    check(freed_slots_clean(torch, np, eng), "freed slots hold zeros and ±inf summaries")
+    qc = eng.manager.queue_counters()
+    check(qc["enqueued"] == qc["drained"] + qc["cancelled"] + qc["dropped"] + qc["depth"],
+          f"queue conservation {qc}")
+    rep = driver.report(driver.steps_run)
+    step_sorted = sorted(step_ms)
+
+    # device idle share over two more steps under the profiler
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        driver.run(2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 2 * 1e3
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in rows) / 2 / 1e3
+    top = ";".join(f"{e.key[:40].replace(' ', '_')}:{e.self_device_time_total / 2 / 1e3:.3f}"
+                   for e in rows[:8])
+    # and over two decode-only steps: the waiting requests are held back,
+    # so no prompt is admitted
+    waiting, eng.queue = eng.queue, deque()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        eng.step()
+        torch.cuda.synchronize()
+        dec_wall_ms = (time.perf_counter() - t0) / 2 * 1e3
+    eng.queue = waiting
+    dec_rows = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    dec_busy_ms = sum(e.self_device_time_total for e in dec_rows) / 2 / 1e3
+    dec_top = ";".join(f"{e.key[:40].replace(' ', '_')}:{e.self_device_time_total / 2 / 1e3:.3f}"
+                       for e in dec_rows[:8])
+    calls = {k: len(v) for k, v in timed_calls.items()}
+    per_step = {k.replace("_ms", "_ms_per_step"): sum(v) / SV_STEPS
+                for k, v in timed_calls.items()}
+    res = dict(
+        setup_s=setup_s, steps=SV_STEPS, decode_tokens_per_s=(eng.decode_tokens - tok0) / timed_s,
+        step_ms_p50=step_sorted[len(step_sorted) // 2],
+        step_ms_p99=step_sorted[min(len(step_sorted) - 1, int(0.99 * len(step_sorted)))],
+        step_ms_mean=sum(step_ms) / len(step_ms),
+        prefills_timed=calls["prefill_ms"],
+        prefill_ms_per_request=sum(timed_calls["prefill_ms"]) / max(calls["prefill_ms"], 1),
+        decode_ms_p50=sorted(timed_calls["decode_ms"])[calls["decode_ms"] // 2],
+        epochs_timed=calls["epoch_ms"], **per_step,
+        migrated_pages=eng._migrated_pages, migrating_epochs=moved_epochs,
+        admission_blocked=eng.admission_blocked, queue_len_end=len(eng.queue),
+        finished=len(eng.finished), checked_pages=stats["checked_pages"],
+        check_s=stats["check_s"], profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+        device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, top_device_ms=top,
+        decode_only_wall_ms=dec_wall_ms, decode_only_busy_ms=dec_busy_ms,
+        decode_only_idle_share=(1 - dec_busy_ms / dec_wall_ms) if dec_busy_ms else None,
+        decode_only_top_device_ms=dec_top,
+    )
+    tenants = {}
+    for name, h in eng.tenant_handles.items():
+        lat = rep[name]["latency"]
+        tenants[name] = dict(modeled_p99_us=lat.get("p99", 0.0) * 1e6,
+                             fmmr=eng.manager.fmmr_of(h), completed=rep[name]["completed"],
+                             generated_tokens=rep[name]["generated_tokens"])
+    return res, tenants, launches, qc
+
+
+# ------------------------------------------------------------------ phase 6
+def serving_gpu_vs_cpu(torch, np):
+    """The serving slice at full width, 2 layers, float32, with the same
+    weights on the card and on the CPU: 3 requests through prefill and 8
+    decode steps. Returns (max relative logit difference, comparisons)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import state_to_numpy
+    from repro_torch.models.model import get_model
+
+    # float32 products in full float32 on the card (no TF32), as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    cpu_params = get_model(cfg).init(seed=SEED, device="cpu")
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (300, 161, 47)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = to_device(cpu_params, dev)
+        eng = serving_stack(torch, cfg, params, dev, kv_dtype=torch.float32, n_fast=8,
+                            n_slow=56, batch=4, per_seq=24, quest=4, epoch=2, queue=16,
+                            bandwidth=4, budget=8)
+        eng.add_tenant("ls", 0.1)
+        eng.add_tenant("be", 1.0)
+        for i, p in enumerate(prompts):
+            eng.submit("ls" if i == 0 else "be", p, 9)
+        counts, logits, inner = [], [], eng.manager.record_access
+        eng.manager.record_access = lambda c: (counts.append(np.array(c)), inner(c))[1]
+        for _ in range(8):
+            eng.step()
+            logits.append(eng.last_logits.cpu())
+        st = state_to_numpy(eng.manager._state)
+        runs[dev] = dict(counts=counts, logits=torch.stack(logits), slot_of=eng.kv.slot_of.copy(),
+                         tokens=[r.generated for r in eng.finished + [r for r in eng.lanes if r]],
+                         state=st, moved=eng._migrated_pages,
+                         queue=eng.manager.queue_counters())
+    g, c = runs["cuda"], runs["cpu"]
+    rel = float((g["logits"] - c["logits"]).abs().max() / c["logits"].abs().max())
+    state_equal = all(
+        np.array_equal(getattr(getattr(g["state"], part), f), getattr(getattr(c["state"], part), f))
+        for part in ("pages", "tenants", "queue") for f in getattr(g["state"], part)._fields)
+    cmp = dict(
+        tokens_equal=g["tokens"] == c["tokens"],
+        counts_equal=len(g["counts"]) == len(c["counts"]) and all(
+            np.array_equal(a, b) for a, b in zip(g["counts"], c["counts"])),
+        state_equal=state_equal, slot_of_equal=bool(np.array_equal(g["slot_of"], c["slot_of"])),
+        queue_equal=g["queue"] == c["queue"], moved=g["moved"],
+    )
+    return rel, cmp
+
+
 # --------------------------------------------------------------------- main
 def main() -> int:
     import numpy as np
@@ -473,6 +886,7 @@ def main() -> int:
     device = torch.device("cuda")
 
     kern = kernel_checks(torch, np, device)
+    attn = attention_checks(torch, np, device)
 
     torch.cuda.reset_peak_memory_stats()
     res = run_slice(torch, np, device)
@@ -486,6 +900,23 @@ def main() -> int:
          **counters)
     check(ints_equal, "GPU and CPU runs bit-equal on integer state and page bytes")
     check(ulp <= 2, "FMMR within 2 ulp between GPU and CPU")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sv, tenants, sv_launches, sv_queue = run_serving(torch, np, device)
+    emit("phase5 serve-yi6b", **sv)
+    for name, t in tenants.items():
+        emit(f"phase5 tenant {name}", **t)
+    emit("phase5 queue", **sv_queue)
+    emit("phase5 launches", **sv_launches)
+    torch.cuda.empty_cache()
+
+    rel, cmp = serving_gpu_vs_cpu(torch, np)
+    emit("phase6", layers=2, logits_max_rel_diff=rel, **cmp)
+    check(rel <= 1e-3, f"GPU and CPU logits within 1e-3 relative ({rel})")
+    check(cmp["tokens_equal"] and cmp["counts_equal"], "greedy tokens and access counts equal")
+    check(cmp["state_equal"] and cmp["slot_of_equal"] and cmp["queue_equal"],
+          "manager state and slot map equal between GPU and CPU")
 
     sources = {
         "page_move": ("src/repro_torch/kernels/csrc/page_copy.cu",
@@ -503,6 +934,20 @@ def main() -> int:
             "launches": res["launches"][name], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": "bytes", "library_ms": k["library_ms"],
+        })
+    attn_sources = {
+        "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention.py:87"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:103"),
+    }
+    for name, (src, replaces) in attn_sources.items():
+        k = attn[f"{name} bfloat16"]  # the serving slice's dtype
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": sv_launches[name], "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,39 @@
+"""Architecture config registry of the port: ``get_config("yi-6b")``.
+
+The port serves dense decoder-only models so far. The other architectures
+of the reference wait for the ROADMAP items that port their model code.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+_ARCH_MODULES = {"yi-6b": "repro_torch.configs.yi_6b"}
+
+# architectures of the reference that the port does not serve yet, with the
+# ROADMAP item that brings each
+_LATER = {
+    "nemotron-4-15b": "ROADMAP Queue 1 item 10 (LM stack: squared-ReLU dense)",
+    "qwen2.5-3b": "ROADMAP Queue 1 item 10 (LM stack: qkv-bias dense)",
+    "qwen2.5-32b": "ROADMAP Queue 1 item 10 (LM stack: qkv-bias dense)",
+    "chameleon-34b": "ROADMAP Queue 1 item 10 (LM stack: VLM backbone)",
+    "zamba2-1.2b": "ROADMAP Queue 1 item 10 (LM stack: hybrid SSM)",
+    "mamba2-130m": "ROADMAP Queue 1 item 10 (LM stack: SSM)",
+    "whisper-tiny": "ROADMAP Queue 1 item 10 (LM stack: encoder-decoder)",
+    "moonshot-v1-16b-a3b": "ROADMAP Queue 1 item 6 (serving: models/moe.py)",
+    "qwen2-moe-a2.7b": "ROADMAP Queue 1 item 6 (serving: models/moe.py)",
+}
+
+ARCH_NAMES = tuple(_ARCH_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name in _LATER:
+        raise NotImplementedError(f"{name} is not ported yet: {_LATER[name]}")
+    if name not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}; choose from {ARCH_NAMES}")
+    return importlib.import_module(_ARCH_MODULES[name]).CONFIG
+
+
+__all__ = ["ARCH_NAMES", "ModelConfig", "get_config"]

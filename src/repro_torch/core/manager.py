@@ -56,13 +56,13 @@ class TenantHandle(int):
     """Opaque tenant slot id (the libMaxMem connection analogue)."""
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, what: str = "CentralManager") -> torch.device:
     """``device`` as a ``torch.device``; ``None`` means the card, and asking
-    for the card where there is none raises."""
+    for the card where there is none raises, naming ``what`` asked."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "CentralManager runs on the GPU by default and no CUDA device is "
+            f"{what} runs on the GPU by default and no CUDA device is "
             "available; pass device='cpu' to run on the CPU"
         )
     return dev

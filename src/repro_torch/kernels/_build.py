@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("page_copy", "hot_bins")
+SOURCES = ("page_copy", "hot_bins", "paged_attention", "flash_attention")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

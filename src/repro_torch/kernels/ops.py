@@ -11,8 +11,10 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hot_bins as _hb
 from repro_torch.kernels import page_copy as _pc
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 
 
@@ -45,12 +47,28 @@ def page_move(pool, src_ids, dst_ids):
     return ref.page_move_ref(pool, src_ids, dst_ids)
 
 
+def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
+    """[B, nh, dh] one-token decode attention over a block table of pages;
+    see ``ref.paged_attention_ref``."""
+    if _on_cuda(q):
+        return _pa.paged_attention(q, k_pages, v_pages, block_tables, seq_lens)
+    return ref.paged_attention_ref(q, k_pages, v_pages, block_tables, seq_lens)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):
+    """[B, nh, Sq, dh] causal GQA attention with suffix alignment; see
+    ``ref.flash_attention_ref``."""
+    if _on_cuda(q):
+        return _fa.flash_attention(q, k, v, causal=causal, sliding_window=sliding_window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, sliding_window=sliding_window)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, by kernel name."""
-    return {**_pc.LAUNCHES, **_hb.LAUNCHES}
+    return {**_pc.LAUNCHES, **_hb.LAUNCHES, **_pa.LAUNCHES, **_fa.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_pc.LAUNCHES, _hb.LAUNCHES):
+    for counts in (_pc.LAUNCHES, _hb.LAUNCHES, _pa.LAUNCHES, _fa.LAUNCHES):
         for name in counts:
             counts[name] = 0

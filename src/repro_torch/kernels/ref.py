@@ -4,6 +4,8 @@ oracles). Each mirrors its kernel's contract; the CPU path of
 against them on the card."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -47,3 +49,55 @@ def page_move_ref(pool, src_ids, dst_ids):
     completes before the scatter starts)."""
     pool[dst_ids.to(torch.int64)] = pool[src_ids.to(torch.int64)]
     return pool
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, sliding_window: int = 0):
+    """Causal GQA attention: q [B, nh, Sq, dh], k/v [B, nkv, Skv, dh] ->
+    [B, nh, Sq, dh] in q's dtype. Query head h reads KV head h // (nh/nkv);
+    queries are the last Sq positions of the key stream (suffix alignment,
+    ``q_offset = Skv - Sq``); ``sliding_window`` > 0 keeps keys with
+    ``k_pos > q_pos - sliding_window``. Scores, softmax and the products
+    accumulate in float32; the probabilities are rounded to v's dtype
+    before the product with v."""
+    B, nh, Sq, dh = q.shape
+    nkv, Skv = k.shape[1], k.shape[2]
+    g = nh // nkv
+    qg = q.reshape(B, nkv, g, Sq, dh).float()
+    s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) / math.sqrt(dh)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if sliding_window:
+        mask &= kpos > qpos - sliding_window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1).to(v.dtype).float()
+    out = torch.matmul(p, v.float()[:, :, None])  # [B, nkv, g, Sq, dh]
+    return out.reshape(B, nh, Sq, dh).to(q.dtype)
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, seq_lens):
+    """One-token GQA decode attention over a block table: q [B, nh, dh],
+    pools [P, page, nkv, dh], ``block_tables`` i32 [B, n_p] (-1 entries
+    skipped), ``seq_lens`` i32 [B] (entry p holds ``clip(len - p*page, 0,
+    page)`` valid tokens). Returns [B, nh, dh] in q's dtype; a row with no
+    valid key returns 0. Float32 scores and softmax; the probabilities are
+    rounded to v's dtype before the product with v."""
+    B, nh, dh = q.shape
+    _, page, nkv, _ = k_pages.shape
+    n_p = block_tables.shape[1]
+    g = nh // nkv
+    tables = block_tables.clamp(min=0).to(torch.int64)
+    k = k_pages[tables].reshape(B, n_p * page, nkv, dh).float()
+    v = v_pages[tables].reshape(B, n_p * page, nkv, dh)
+    qg = q.reshape(B, nkv, g, dh).float()
+    s = torch.einsum("bngd,bknd->bngk", qg, k) / math.sqrt(dh)
+    pos = torch.arange(n_p * page, device=q.device)[None, :]
+    valid = pos < seq_lens.to(torch.int64)[:, None]
+    valid &= (block_tables >= 0).repeat_interleave(page, dim=1)
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0).to(v.dtype).float()
+    out = torch.einsum("bngk,bknd->bngd", p, v.float())
+    return out.reshape(B, nh, dh).to(q.dtype)

@@ -1,0 +1,50 @@
+"""Carry the reference's weights across: the JAX package's param pytree, as
+the numpy arrays of ``jax.device_get``, into the port's parameters.
+
+The two packages share one layout (dense weights [in, out], every layer's
+weights stacked on a leading L axis), so the conversion is a copy with the
+config's dtype: ``embed``, ``layers`` (``attn_norm``, ``attn`` with ``w_q``,
+``w_k``, ``w_v``, ``w_o`` and the optional biases and qk-norms,
+``mlp_norm``, ``mlp``), ``final_norm`` and ``lm_head`` unless the
+embeddings are tied.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def tensor_from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """One array as a tensor of ``dtype`` on ``device``. A bfloat16 array
+    (numpy's ``ml_dtypes`` extension type, which torch cannot read) is
+    reinterpreted bit for bit through uint16."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).astype(np.int16))
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))  # a copy: device_get arrays are read-only
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_numpy(cfg, params_np: Dict[str, Any], device) -> Dict[str, Any]:
+    """The port's parameter tree from the reference's (numpy leaves)."""
+    if cfg.is_moe:
+        raise NotImplementedError("MoE layers are not ported yet (ROADMAP Queue 1 item 6)")
+    expected = {"embed", "layers", "final_norm"} | (set() if cfg.tie_embeddings else {"lm_head"})
+    if set(params_np) != expected:
+        raise KeyError(f"param tree has {sorted(params_np)}, expected {sorted(expected)}")
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return tensor_from_numpy(tree, cfg.pdtype, device)
+
+    out = conv(params_np)
+    L = cfg.num_layers
+    for name, leaf in out["layers"]["attn"].items():
+        if leaf.shape[0] != L:
+            raise ValueError(f"layers.attn.{name} has no leading layer axis of {L}")
+    return out

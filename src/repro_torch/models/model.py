@@ -1,0 +1,48 @@
+"""Unified model API of the port — dispatch on ``cfg.family``.
+
+    api = get_model(cfg)
+    params = api.init(seed)                 # on "cuda" unless device= says otherwise
+    logits, kv = api.prefill(params, tokens, max_len)
+
+Only the dense family is ported; the others raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.manager import resolve_device
+from repro_torch.models import transformer
+
+
+@dataclass(frozen=True)
+class ModelAPI:
+    cfg: ModelConfig
+    init: Callable[..., Any]
+    prefill: Callable[..., Any]
+
+
+def _init(cfg: ModelConfig, seed: int = 0, device=None):
+    """Random weights from ``seed`` on ``device`` (``None`` = the card,
+    which raises where there is none)."""
+    dev = resolve_device(device, what="the model")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return transformer.init_params(gen, cfg, dev)
+
+
+def get_model(cfg: ModelConfig) -> ModelAPI:
+    if cfg.family == "dense" and not cfg.is_moe:
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda seed=0, device=None: _init(cfg, seed, device),
+            prefill=lambda p, t, ml: transformer.prefill(p, t, cfg, ml),
+        )
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported yet: MoE waits for ROADMAP Queue 1 item 6, "
+        "the other families for item 10"
+    )

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each hand-written kernel against its
-plain PyTorch version, bit for bit. Every test here needs a CUDA device and
+plain PyTorch version, the copies and histograms bit for bit, attention
+within the reference's tolerances. Every test here needs a CUDA device and
 skips without one; the file imports neither JAX nor the JAX package, so it
 runs on a machine that has only PyTorch:
 
@@ -65,3 +66,68 @@ def test_cuda_hot_bins_matches_plain(cuda, N, P):
     gc, gb = ops.hot_bins(ids, cin, num_bins=6)
     torch.cuda.synchronize()
     assert torch.equal(gc, wc) and torch.equal(gb, wb)
+
+
+# Tolerances of the reference's kernel tests (tests/test_kernels.py:21): the
+# kernels accumulate in float32 in another order than the plain versions.
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _paged_inputs(rng, B, nh, nkv, dh, P, page, n_p, dtype, device):
+    q = torch.as_tensor(rng.normal(size=(B, nh, dh)).astype(np.float32)).to(device, dtype)
+    kp = torch.as_tensor(rng.normal(size=(P, page, nkv, dh)).astype(np.float32)).to(device, dtype)
+    vp = torch.as_tensor(rng.normal(size=(P, page, nkv, dh)).astype(np.float32)).to(device, dtype)
+    tables = np.full((B, n_p), -1, np.int32)
+    lens = np.zeros(B, np.int32)
+    for b in range(B):
+        used = rng.integers(1, n_p + 1)
+        tables[b, :used] = rng.choice(P, used, replace=False)
+        tables[b, rng.integers(0, used)] = -1 if used > 1 else tables[b, 0]  # a hole
+        lens[b] = rng.integers(1, used * page + 1)
+    lens[0] = 0  # a lane with no valid key returns 0
+    return (q, kp, vp, torch.as_tensor(tables, device=device),
+            torch.as_tensor(lens, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nh,nkv,dh,P,page,n_p", [
+    (2, 4, 2, 64, 16, 8, 4),
+    (3, 8, 1, 128, 32, 16, 6),
+    (4, 16, 2, 128, 64, 32, 8),
+    (32, 32, 4, 128, 4608, 16, 32),  # the serving slice's shape (yi-6b)
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_attention_matches_plain(cuda, B, nh, nkv, dh, P, page, n_p, dtype):
+    rng = np.random.default_rng(B * 131 + P)
+    args = _paged_inputs(rng, B, nh, nkv, dh, P, page, n_p, dtype, cuda)
+    got = ops.paged_attention(*args)
+    want = ref.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nh,nkv,Sq,Skv,dh,window,causal", [
+    (2, 4, 2, 128, 128, 64, 0, True),
+    (1, 8, 8, 96, 96, 128, 0, True),
+    (2, 4, 1, 64, 192, 64, 0, True),  # Sq < Skv: suffix alignment
+    (1, 2, 2, 300, 300, 64, 0, True),  # ragged tiles
+    (1, 4, 2, 256, 256, 64, 64, True),  # sliding window
+    (2, 4, 2, 40, 72, 16, 0, False),  # not causal, the smoke head width
+    (1, 32, 4, 1024, 1024, 128, 0, True),  # the serving slice's prefill (yi-6b)
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain(cuda, B, nh, nkv, Sq, Skv, dh, window, causal,
+                                            dtype):
+    rng = np.random.default_rng(Sq + Skv + dh)
+    q, k, v = (
+        torch.as_tensor(rng.normal(size=s).astype(np.float32)).to(cuda, dtype)
+        for s in ((B, nh, Sq, dh), (B, nkv, Skv, dh), (B, nkv, Skv, dh))
+    )
+    got = ops.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, sliding_window=window)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)

@@ -45,8 +45,33 @@ def test_manager_defaults_to_the_card(monkeypatch):
     assert m.device.type == "cpu"
 
 
+def test_serving_defaults_to_the_card(monkeypatch):
+    """The model, the KV pools and the engine run on the card unless asked
+    for the CPU; without a GPU the default raises."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.manager import CentralManager
+    from repro_torch.kvcache.paged import TieredPagedKV
+    from repro_torch.models.model import get_model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("yi-6b").smoke()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TieredPagedKV(cfg, 4, 12, page_tokens=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_model(cfg).init(seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, None, CentralManager(num_pages=16, fast_capacity=4,
+                                                migration_budget=4),
+                      TieredPagedKV(cfg, 4, 12, page_tokens=4, device="cpu"))
+    m = CentralManager(num_pages=16, fast_capacity=4, migration_budget=4, device="cpu")
+    eng = ServingEngine(cfg, get_model(cfg).init(seed=0, device="cpu"), m,
+                        TieredPagedKV(cfg, 4, 12, page_tokens=4, device="cpu"))
+    assert eng.device.type == "cpu"
+
+
 def test_kernel_wrappers_take_cuda_tensors_only():
-    from repro_torch.kernels import hot_bins, page_copy
+    from repro_torch.kernels import flash_attention, hot_bins, page_copy, paged_attention
 
     pool = torch.zeros(4, 8)
     ids = torch.zeros(2, dtype=torch.int32)
@@ -56,6 +81,12 @@ def test_kernel_wrappers_take_cuda_tensors_only():
         page_copy.page_copy(pool.clone(), pool, ids, ids)
     with pytest.raises(ValueError, match="CUDA"):
         hot_bins.hot_bins(ids, torch.zeros(4, dtype=torch.int32))
+    q, kp = torch.zeros(2, 4, 16), torch.zeros(8, 4, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention.paged_attention(q, kp, kp, ids.reshape(2, 1), ids)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention(torch.zeros(1, 4, 8, 16), torch.zeros(1, 2, 8, 16),
+                                        torch.zeros(1, 2, 8, 16))
 
 
 def test_dispatch_is_by_device_with_no_override(monkeypatch):
@@ -103,3 +134,9 @@ def test_cuda_request_without_a_build_raises(monkeypatch, tmp_path):
     ids = torch.zeros(2, dtype=torch.int32, device=cuda)
     with pytest.raises(_build.KernelCompileError):
         ops.page_move(pool, ids, ids)
+    q, kp = torch.zeros(2, 4, 16, device=cuda), torch.zeros(8, 4, 2, 16, device=cuda)
+    with pytest.raises(_build.KernelCompileError):
+        ops.paged_attention(q, kp, kp, ids.reshape(2, 1), ids)
+    x, kv = torch.zeros(1, 4, 8, 16, device=cuda), torch.zeros(1, 2, 8, 16, device=cuda)
+    with pytest.raises(_build.KernelCompileError):
+        ops.flash_attention(x, kv, kv)
