@@ -4,10 +4,14 @@
     python3 chip_smoke.py
 
 Phases, one line of numbers each:
-  1. the card's name and power limit (nvidia-smi), then the kernels' build;
+  1. the card's name and power limit (nvidia-smi), then the kernels' build
+     and ptxas's registers and spills for the attention kernels;
   2. each CUDA kernel against its plain PyTorch version on the card, at the
-     slice's shapes, bit for bit, with its time, the plain version's time,
-     one library call's time and the bound (bytes over HBM bandwidth);
+     slice's shapes, bit for bit, with its time (20 launches back to back
+     between two CUDA events), its device time (profiler), for the
+     attention kernels the wrapper's host time per call, the plain
+     version's time, one library call's time and device time, and the bound
+     (bytes over HBM bandwidth);
   3. the slice end to end: ``CentralManager`` at 1,048,576 pages with 4 KiB
      of float32 content per page on the card, six colocated tenants, a
      seeded GUPS-style access stream, 32 ``run_epoch`` calls and one
@@ -27,7 +31,8 @@ Phases, one line of numbers each:
      and on the CPU with the same weights: logits, greedy tokens, per-step
      access counts, manager state and the slot map compared.
 Phase 2 also holds ``paged_attention`` and ``flash_attention`` against their
-plain versions, in float32 and bfloat16, at phase 5's shapes.
+plain versions, in float32 and bfloat16, at phase 5's shapes (flash at both
+tenants' prompt lengths, 1,024 and 512).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises, and
 the script then exits non-zero without printing a result. It needs a CUDA
@@ -84,6 +89,51 @@ def emit(phase: str, **nums) -> None:
     print(f"{phase}: " + " ".join(f"{k}={v}" for k, v in nums.items()), flush=True)
 
 
+# the attention kernels at the slice's head dim: (source, kernel, template
+# arguments), as phase 1 reports them from ptxas
+PTXAS_KERNELS = (
+    ("flash_attention", "flash_attention_hopper", 128),
+    ("flash_attention", "flash_attention_kernel", "float", 128),
+    ("paged_attention", "paged_split_kernel", "__nv_bfloat16", 128, 4),
+    ("paged_attention", "paged_split_kernel", "float", 128, 8),
+    ("paged_attention", "paged_combine_kernel", "__nv_bfloat16"),
+)
+
+
+def template_id(name: str, *args) -> str:
+    """How the kernel ``name<args...>`` is spelled inside its mangled symbol:
+    an int argument as Li<n>E, float as f, a class by its length and name."""
+    enc = "".join(f"Li{a}E" if isinstance(a, int) else ("f" if a == "float" else f"{len(a)}{a}")
+                  for a in args)
+    return f"{len(name)}{name}I{enc}E"
+
+
+def ptxas_report(text: str) -> dict:
+    """nvcc -Xptxas -v output -> {mangled kernel: "R registers, S bytes spill
+    stores" plus any "Potential Performance Loss" note (ptxas serialised
+    the kernel's wgmma products)}."""
+    import re
+
+    regs, spills, notes, fn = {}, {}, {}, None
+    for line in text.splitlines():
+        m = re.search(r"Potential Performance Loss: (.*?) in the function '(\S+)'", line)
+        if m:
+            notes[m.group(2)] = notes.get(m.group(2), "") + f"; {m.group(1)}"
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            spills[fn] = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            regs[fn] = m.group(1)
+    return {f: f"{regs[f]} registers, {spills.get(f, '?')} bytes spill stores{notes.get(f, '')}"
+            for f in regs}
+
+
 # ------------------------------------------------------------------ helpers
 def page_pattern(torch, ids, elems: int):
     """Seeded content that names its page: column 0 is the page id, the
@@ -121,8 +171,12 @@ def epoch_counts(torch, rates, gen):
     return torch.poisson(rates, generator=gen).to(torch.int64)
 
 
-def time_cuda(torch, fn, reps: int = 7) -> float:
-    """Median milliseconds of ``fn`` between CUDA events, after a warm-up."""
+def time_cuda(torch, fn, reps: int = 5, launches: int = 20) -> float:
+    """Milliseconds per call of ``fn``: ``launches`` calls back to back
+    between one pair of CUDA events, divided by their number; the median of
+    ``reps`` such runs, after a warm-up. A kernel of tens of microseconds
+    timed alone between two events would mostly measure the wrapper's host
+    work."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -130,10 +184,28 @@ def time_cuda(torch, fn, reps: int = 7) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(launches):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / launches)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def host_ms(torch, fn, reps: int = 5, launches: int = 20) -> float:
+    """Milliseconds of host time per call of ``fn`` (the wrapper's checks,
+    allocations and launch): ``launches`` calls issued back to back on the
+    host clock, not waiting for the card; the median of ``reps`` runs."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        times.append((time.perf_counter() - t0) / launches * 1e3)
+        torch.cuda.synchronize()
     times.sort()
     return times[len(times) // 2]
 
@@ -141,17 +213,20 @@ def time_cuda(torch, fn, reps: int = 7) -> float:
 def device_ms(torch, fn, reps: int = 5):
     """Milliseconds of device time per call of ``fn`` (the sum of its
     kernels, memsets and copies as the profiler traces them), or None when
-    the profiler records no device activity."""
+    the profiler records no device activity in three tries."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return total_us / reps / 1e3 if total_us > 0 else None
+    for _ in range(3):  # the profiler now and then records nothing: try again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages())
+        if total_us > 0:
+            return total_us / reps / 1e3
+    return None
 
 
 def max_abs_err(torch, a, b, chunk: int = 65536) -> float:
@@ -210,12 +285,16 @@ def kernel_checks(torch, np, device):
     err = max_abs_err(torch, pool_a, pool_b)
     s64, d64 = s.to(torch.int64), d.to(torch.int64)
     n_real = 2 * n_pairs
+
+    def library():
+        return pool_b.index_copy_(0, d64, pool_b.index_select(0, s64))
+
     out["page_move"] = dict(
         max_abs_err=err,
         ms=time_cuda(torch, lambda: ops.page_move(pool_a, s, d)),
         plain_ms=time_cuda(torch, lambda: ref.page_move_ref(pool_b, s, d)),
-        library_ms=time_cuda(
-            torch, lambda: pool_b.index_copy_(0, d64, pool_b.index_select(0, s64))),
+        library_ms=time_cuda(torch, library),
+        library_device_ms=device_ms(torch, library),
         bytes=2 * n_real * row_bytes + 2 * 4 * M,
         shape=f"pool[{rows},{ELEMS}]f32 plan={M} real={n_real}",
     )
@@ -236,12 +315,16 @@ def kernel_checks(torch, np, device):
           "page_copy kernel bit-equal to its plain version off the trash row")
     err = max_abs_err(torch, pool_a[:-1], pool_b[:-1])
     s64, d64 = s.to(torch.int64), d.to(torch.int64)
+
+    def library():
+        return pool_b.index_copy_(0, d64, staging.index_select(0, s64))
+
     out["page_copy"] = dict(
         max_abs_err=err,
         ms=time_cuda(torch, lambda: ops.page_copy(staging, pool_a, s, d)),
         plain_ms=time_cuda(torch, lambda: ref.page_copy_ref(staging, pool_b, s, d)),
-        library_ms=time_cuda(
-            torch, lambda: pool_b.index_copy_(0, d64, staging.index_select(0, s64))),
+        library_ms=time_cuda(torch, library),
+        library_device_ms=device_ms(torch, library),
         # the padded entries leave one row in the trash: M - n_pad + 1 rows
         # must be read and written
         bytes=2 * (M - n_pad + 1) * row_bytes + 2 * 4 * M,
@@ -273,6 +356,7 @@ def kernel_checks(torch, np, device):
         ms=time_cuda(torch, lambda: ops.hot_bins(ids, cin, num_bins=6)),
         plain_ms=time_cuda(torch, lambda: ref.hot_bins_ref(ids, cin, 6)),
         library_ms=time_cuda(torch, lambda: torch.bincount(ids, minlength=PAGES)),
+        library_device_ms=device_ms(torch, lambda: torch.bincount(ids, minlength=PAGES)),
         bytes=4 * N + 12 * PAGES,
         shape=f"ids[{N}] counts[{PAGES}]",
     )
@@ -467,7 +551,7 @@ def gpu_vs_cpu(torch, np):
 # the serving slice's shapes: yi-6b's heads, 16-token pages, a 32-entry
 # Quest table over the 4,608-slot pool, a 1,024-token prefill
 PA_B, PA_NH, PA_NKV, PA_DH, PA_PAGE, PA_NP, PA_SLOTS = 32, 32, 4, 128, 16, 32, 4608
-FA_S = 1024
+FA_S = (1024, 512)  # the two tenants' prompt lengths
 
 
 def paged_inputs(torch, np, dtype, device):
@@ -531,39 +615,53 @@ def attention_checks(torch, np, device):
             max_abs_err=err, tol=tol,
             ms=time_cuda(torch, lambda: ops.paged_attention(q, kp, vp, tables, lens)),
             device_ms=device_ms(torch, lambda: ops.paged_attention(q, kp, vp, tables, lens)),
+            host_ms=host_ms(torch, lambda: ops.paged_attention(q, kp, vp, tables, lens)),
             plain_ms=time_cuda(torch, lambda: ref.paged_attention_ref(q, kp, vp, tables, lens)),
             library_ms=time_cuda(torch, library),
+            library_device_ms=device_ms(torch, library),
             bound_ms=bound_ms(paged_bytes(np, tables, lens, q.element_size())),
             bound_by="bytes", library="gather+sdpa (two calls)",
         )
         del kp, vp
 
-        g = torch.Generator(device=device)
-        g.manual_seed(SEED + 3)
-        qf = torch.randn((1, PA_NH, FA_S, PA_DH), generator=g, device=device).to(dtype)
-        kf = torch.randn((1, PA_NKV, FA_S, PA_DH), generator=g, device=device).to(dtype)
-        vf = torch.randn((1, PA_NKV, FA_S, PA_DH), generator=g, device=device).to(dtype)
-        got = ops.flash_attention(qf, kf, vf, causal=True)
-        want = ref.flash_attention_ref(qf, kf, vf, causal=True)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        check(bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)),
-              f"flash_attention {dname} within {tol} of its plain version (max err {err})")
-        flops = 4 * PA_NH * PA_DH * FA_S * (FA_S + 1) // 2  # the causal pairs only
-        nbytes = (2 * PA_NH + 2 * PA_NKV) * FA_S * PA_DH * qf.element_size()
-        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-        by_ops = flops / peak * 1e3
-        out[f"flash_attention {dname}"] = dict(
-            max_abs_err=err, tol=tol,
-            ms=time_cuda(torch, lambda: ops.flash_attention(qf, kf, vf, causal=True)),
-            device_ms=device_ms(torch, lambda: ops.flash_attention(qf, kf, vf, causal=True)),
-            plain_ms=time_cuda(torch, lambda: ref.flash_attention_ref(qf, kf, vf, causal=True)),
-            library_ms=time_cuda(torch, lambda: F.scaled_dot_product_attention(
-                qf, kf, vf, is_causal=True, enable_gqa=True)),
-            bound_ms=max(by_ops, bound_ms(nbytes)),
-            bound_by="operations" if by_ops >= bound_ms(nbytes) else "bytes",
-            library="sdpa(is_causal, enable_gqa)",
-        )
+        # the be tenant's 1,024-token prompt (the row of the kernels line),
+        # then the ls tenant's 512
+        for S in FA_S:
+            g = torch.Generator(device=device)
+            g.manual_seed(SEED + 3)
+            qf = torch.randn((1, PA_NH, S, PA_DH), generator=g, device=device).to(dtype)
+            kf = torch.randn((1, PA_NKV, S, PA_DH), generator=g, device=device).to(dtype)
+            vf = torch.randn((1, PA_NKV, S, PA_DH), generator=g, device=device).to(dtype)
+            got = ops.flash_attention(qf, kf, vf, causal=True)
+            want = ref.flash_attention_ref(qf, kf, vf, causal=True)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            check(bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)),
+                  f"flash_attention {dname} S {S} within {tol} of its plain version "
+                  f"(max err {err})")
+            flops = 4 * PA_NH * PA_DH * S * (S + 1) // 2  # the causal pairs only
+            nbytes = (2 * PA_NH + 2 * PA_NKV) * S * PA_DH * qf.element_size()
+            peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+            by_ops = flops / peak * 1e3
+
+            def library():
+                return F.scaled_dot_product_attention(qf, kf, vf, is_causal=True,
+                                                      enable_gqa=True)
+
+            name = f"flash_attention {dname}" + ("" if S == FA_S[0] else f" S{S}")
+            out[name] = dict(
+                max_abs_err=err, tol=tol,
+                ms=time_cuda(torch, lambda: ops.flash_attention(qf, kf, vf, causal=True)),
+                device_ms=device_ms(torch, lambda: ops.flash_attention(qf, kf, vf, causal=True)),
+                host_ms=host_ms(torch, lambda: ops.flash_attention(qf, kf, vf, causal=True)),
+                plain_ms=time_cuda(
+                    torch, lambda: ref.flash_attention_ref(qf, kf, vf, causal=True)),
+                library_ms=time_cuda(torch, library),
+                library_device_ms=device_ms(torch, library),
+                bound_ms=max(by_ops, bound_ms(nbytes)),
+                bound_by="operations" if by_ops >= bound_ms(nbytes) else "bytes",
+                library="sdpa(is_causal, enable_gqa)",
+            )
         torch.cuda.empty_cache()
     for name, r in out.items():
         emit(f"phase2 {name}", **{k: (v.replace(" ", "_") if isinstance(v, str) else v)
@@ -879,10 +977,17 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0].strip()
     print(card, flush=True)
     t0 = time.perf_counter()
-    _build.build()
+    libs = _build.build()
     emit("phase1", build_s=round(time.perf_counter() - t0, 3),
          torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0).replace(" ", "_"))
+    for src, name, *args in PTXAS_KERNELS:
+        log = libs[src].with_suffix(".log")
+        found = ptxas_report(log.read_text(errors="replace")) if log.exists() else {}
+        tid = template_id(name, *args)
+        lines = [line for fn, line in found.items() if tid in fn]
+        check(len(lines) == 1, f"ptxas reports {name}<{', '.join(map(str, args))}> once in {log}")
+        print(f"phase1 ptxas {name}<{', '.join(map(str, args))}>: {lines[0]}", flush=True)
     device = torch.device("cuda")
 
     kern = kernel_checks(torch, np, device)
@@ -934,6 +1039,7 @@ def main() -> int:
             "launches": res["launches"][name], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": "bytes", "library_ms": k["library_ms"],
+            "device_ms": k["device_ms"], "library_device_ms": k["library_device_ms"],
         })
     attn_sources = {
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -948,6 +1054,7 @@ def main() -> int:
             "launches": sv_launches[name], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "device_ms": k["device_ms"], "library_device_ms": k["library_device_ms"],
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,15 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/repro_torch/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/lib<name>-<hash>.so csrc/<name>.cu
 
 The library name carries a hash of the source, so an edited source is
 rebuilt and an unchanged one is loaded as it is. The build directory,
 ``build/repro_torch/`` at the root of the checkout, is listed in
 ``.gitignore``. Only sources in the checkout are compiled; nothing is
-downloaded. A failed build raises with nvcc's output.
+downloaded. A failed build raises with nvcc's output; a successful one keeps
+it beside the library (``.log``): ptxas's report of each kernel's registers,
+spills and notes.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("page_copy", "hot_bins", "paged_attention", "flash_attention")
 
@@ -71,6 +73,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {n}.cu (exit {proc.returncode}):\n{out.decode()}")
             continue
+        paths[n].with_suffix(".log").write_bytes(out)
         os.replace(tmp, paths[n])
     if errors:
         raise KernelCompileError("\n".join(errors))

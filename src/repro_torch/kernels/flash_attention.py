@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.paged_attention import check_tensor, dtype_code, typed_fn
+from repro_torch.kernels.paged_attention import check_aligned, check_tensor, dtype_code, typed_fn
 
 LAUNCHES = {"flash_attention": 0}
 
@@ -22,7 +22,8 @@ HEAD_DIMS = (16, 32, 64, 128)
 
 def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0) -> torch.Tensor:
     """[B, nh, Sq, dh] causal GQA attention with suffix alignment (see
-    ``ref.flash_attention_ref``). One launch."""
+    ``ref.flash_attention_ref``). One launch: the Hopper kernel (TMA and
+    wgmma) in bfloat16, the CUDA-core kernel in float32."""
     check_tensor("q", q, 4)
     dev, dt = q.device, q.dtype
     code = dtype_code(q)
@@ -35,6 +36,8 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0) ->
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, got {dh}")
     out = torch.empty_like(q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        check_aligned(name, t)  # the bf16 kernel's TMA maps need 16-byte bases
     fn = typed_fn("flash_attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P])
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, nh, nkv, Sq, Skv, dh,

@@ -51,9 +51,65 @@ def dtype_code(t: torch.Tensor) -> int:
     return _DTYPE_CODE[t.dtype]
 
 
+HEAD_DIMS = (16, 32, 64, 128)
+WARPS = 4  # warps of a split CTA (csrc/paged_attention.cu kWarps)
+CTAS_PER_SM = 4
+
+
+def split_plan(B: int, nkv: int, n_p: int, sms: int) -> tuple:
+    """(n_split, per): each (lane, KV head) pair gets ``n_split`` CTAs over
+    contiguous splits of ``per`` table entries, enough for about
+    ``CTAS_PER_SM`` CTAs on each of ``sms`` SMs. A split longer than one
+    entry per warp is rounded up to a whole number of entries per warp, and
+    no split is empty. At the yi-6b serving shape (32 lanes, 4 KV heads, 32
+    entries, 132 SMs) that is 4 splits of 8 entries: 512 CTAs."""
+    if n_p <= 0:
+        return 1, 1
+    want = max(1, -(-CTAS_PER_SM * sms // max(B * nkv, 1)))
+    per = -(-n_p // min(want, n_p))
+    if per > WARPS:
+        per = -(-per // WARPS) * WARPS
+    return -(-n_p // per), per
+
+
+def team_fits(dh: int, itemsize: int, g: int) -> bool:
+    """Whether the kernel's lanes can carry a group of ``g`` query heads: a
+    team of lanes covers one dh row in 16-byte vectors, a warp's teams
+    share out the heads, and a team reduces at most min(8, its lanes) of
+    them (rounded up to a power of two)."""
+    lanes = dh // (16 // itemsize)
+    per_team = -(-g // (32 // lanes))
+    return 1 << (per_team - 1).bit_length() <= min(8, lanes)
+
+
+_PLANS: dict = {}
+
+
+def _plan(dev: torch.device, B: int, nh: int, nkv: int, dh: int, itemsize: int, n_p: int):
+    """(n_split, per, partial floats) of a call shape, worked out once per
+    shape and device: a decode step makes the same call in every layer."""
+    key = (dev.index, B, nh, nkv, dh, itemsize, n_p)
+    plan = _PLANS.get(key)
+    if plan is None:
+        g = nh // nkv
+        if not team_fits(dh, itemsize, g):
+            raise ValueError(f"paged_attention: {g} query heads per KV head is too many at dh {dh}")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        n_split, per = split_plan(B, nkv, n_p, sms)
+        plan = _PLANS[key] = (n_split, per, B * nkv * n_split * g * dh)
+    return plan
+
+
+def check_aligned(name: str, t: torch.Tensor) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens) -> torch.Tensor:
     """[B, nh, dh] decode attention of q over the pages of ``block_tables``
-    (see ``ref.paged_attention_ref``). One launch."""
+    (see ``ref.paged_attention_ref``). One call: the split kernel, then the
+    kernel that merges the splits (``ref.paged_attention_split_ref`` is its
+    plain model)."""
     check_tensor("q", q, 3)
     dev, dt = q.device, q.dtype
     code = dtype_code(q)
@@ -65,15 +121,25 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens) -> torch.Tensor
     _, page, nkv, dh_k = k_pages.shape
     if dh_k != dh or nh % nkv:
         raise ValueError(f"q {tuple(q.shape)} does not fit pools {tuple(k_pages.shape)}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"paged_attention takes head dims {HEAD_DIMS}, got {dh}")
     check_tensor("block_tables", block_tables, 2, dev, torch.int32)
     check_tensor("seq_lens", seq_lens, 1, dev, torch.int32)
     if block_tables.shape[0] != B or seq_lens.shape[0] != B:
         raise ValueError("block_tables and seq_lens need one row per query")
+    q_ptr, k_ptr, v_ptr = q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()
+    if (q_ptr | k_ptr | v_ptr) % 16:
+        raise ValueError("q, k_pages and v_pages must start on 16-byte boundaries")
+    n_p = block_tables.shape[1]
+    n_split, per, n_acc = _plan(dev, B, nh, nkv, dh, q.element_size(), n_p)
     out = torch.empty_like(q)
-    fn = typed_fn("paged_attention", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P])
+    # the f32 partials in one buffer: acc [B, nkv, n_split, g, dh], then
+    # (m, l) [B, nkv, n_split, g, 2]
+    part = torch.empty(n_acc + n_acc // dh * 2, dtype=torch.float32, device=dev)
+    fn = typed_fn("paged_attention", [_P] * 8 + [_I] * 8 + [_F, _I, _P])
     err = fn(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), B, block_tables.shape[1], page, nkv, dh,
+        q_ptr, k_ptr, v_ptr, block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+        part.data_ptr(), part.data_ptr() + 4 * n_acc, B, n_p, per, n_split, page, nkv, dh,
         nh // nkv, 1.0 / math.sqrt(dh), code, torch.cuda.current_stream(dev).cuda_stream,
     )
     LAUNCHES["paged_attention"] += 1

@@ -101,3 +101,44 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, seq_lens):
     p = torch.nan_to_num(p, nan=0.0).to(v.dtype).float()
     out = torch.einsum("bngk,bknd->bngd", p, v.float())
     return out.reshape(B, nh, dh).to(q.dtype)
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, block_tables, seq_lens, n_split: int):
+    """The split-K form of ``paged_attention_ref``, as the CUDA kernel
+    computes it: split s covers table entries ``[s*per, min((s+1)*per,
+    n_p))`` with ``per = ceil(n_p / n_split)``; each split keeps its own
+    max ``m`` (-1e30 with no valid key), sum ``l`` of ``exp(s - m)`` and
+    accumulator of the products with v of those probabilities rounded to
+    v's dtype; the splits merge with the log-sum-exp rescale into
+    ``acc / max(l, 1e-30)``. A split with no valid key adds weight 0; a row
+    with none at all returns 0. Nothing on the main path calls it: it is
+    the plain model of the kernel's merge."""
+    B, nh, dh = q.shape
+    _, page, nkv, _ = k_pages.shape
+    n_p = block_tables.shape[1]
+    g = nh // nkv
+    per = max(1, -(-n_p // max(n_split, 1)))
+    tables = block_tables.clamp(min=0).to(torch.int64)
+    k = k_pages[tables].reshape(B, n_p * page, nkv, dh).float()
+    v = v_pages[tables].reshape(B, n_p * page, nkv, dh)
+    qg = q.reshape(B, nkv, g, dh).float()
+    s = torch.einsum("bngd,bknd->bngk", qg, k) / math.sqrt(dh)
+    pos = torch.arange(n_p * page, device=q.device)[None, :]
+    valid = pos < seq_lens.to(torch.int64)[:, None]
+    valid &= (block_tables >= 0).repeat_interleave(page, dim=1)
+    neg = torch.tensor(-1e30, dtype=torch.float32, device=q.device)
+    ms, ls, accs = [], [], []
+    for lo in range(0, n_split * per, per):
+        cols = slice(lo * page, min(lo + per, n_p) * page)
+        ok = valid[:, None, None, cols]
+        sc = torch.where(ok, s[..., cols], neg)
+        m = sc.amax(dim=-1, keepdim=True) if sc.shape[-1] else neg.expand(B, nkv, g, 1)
+        e = torch.where(ok, torch.exp(sc - m), torch.zeros((), device=q.device))
+        p = e.to(v.dtype).float()
+        ms.append(m[..., 0])
+        ls.append(e.sum(dim=-1))
+        accs.append(torch.einsum("bngk,bknd->bngd", p, v[:, cols].float()))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)  # split first
+    w = torch.exp(m - m.amax(dim=0))
+    out = (acc * w[..., None]).sum(dim=0) / torch.clamp((l * w).sum(dim=0), min=1e-30)[..., None]
+    return out.reshape(B, nh, dh).to(q.dtype)

@@ -18,7 +18,8 @@ from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.paged_attention import paged_attention as jax_paged
 from repro.models import layers as JL
 from repro_torch.configs import get_config
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.paged_attention import split_plan, team_fits
 from repro_torch.models import layers as TL
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -82,6 +83,77 @@ def test_paged_attention_single_token_and_masked_rows():
     assert torch.equal(got[1:], torch.zeros_like(got[1:]))
     want = jref.paged_attention_ref(q[0], kp[0], vp[0], jnp.asarray(tables), jnp.asarray(lens))
     _close(got, want, TOL["float32"])
+
+
+# ------------------------------------------ the split-K merge of the CUDA kernel
+def _split_case(dt):
+    """Five-entry tables of 8-token pages: lane 0 has length 0; lane 1's
+    middle entries are -1 (a split of 2 entries holds only -1); lane 2's
+    length ends in its second page (later splits lie wholly past it);
+    lane 3 has a hole and a ragged last page."""
+    rng = np.random.default_rng(13)
+    B, nh, nkv, dh, P, page = 4, 8, 2, 64, 24, 8
+    q = _both(rng.normal(size=(B, nh, dh)), dt)
+    kp = _both(rng.normal(size=(P, page, nkv, dh)), dt)
+    vp = _both(rng.normal(size=(P, page, nkv, dh)), dt)
+    tables = rng.choice(P, (B, 5)).astype(np.int32)
+    tables[1, 2:4] = -1
+    tables[3, 1] = -1
+    lens = np.asarray([0, 40, 10, 35], np.int32)
+    return q, kp, vp, tables, lens
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 5])  # 5 = n_p: one entry a split
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_paged_split_ref_matches_reference(n_split, dt):
+    q, kp, vp, tables, lens = _split_case(dt)
+    jt, jl = jnp.asarray(tables), jnp.asarray(lens)
+    tt, tl = torch.as_tensor(tables), torch.as_tensor(lens)
+    got = ref.paged_attention_split_ref(q[1], kp[1], vp[1], tt, tl, n_split)
+    assert got.dtype == TDT[dt] and got.shape == q[1].shape
+    assert torch.equal(got[0], torch.zeros_like(got[0]))  # length 0 returns exactly 0
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, ref.paged_attention_ref(q[1], kp[1], vp[1], tt, tl).float().numpy(), TOL[dt])
+    _close(got, jax_paged(q[0], kp[0], vp[0], jt, jl, interpret=True), TOL[dt])
+    _close(got, jref.paged_attention_ref(q[0], kp[0], vp[0], jt, jl), TOL[dt])
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 4])
+def test_paged_split_ref_all_holes(n_split):
+    """A table of all -1 and lanes of length 0 return 0 from every split."""
+    q, kp, vp, tables, lens = _split_case("float32")
+    tables[1:] = -1
+    got = ref.paged_attention_split_ref(q[1], kp[1], vp[1], torch.as_tensor(tables),
+                                        torch.as_tensor(lens), n_split)
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("B,nkv,n_p,sms,want", [
+    (32, 4, 32, 132, (4, 8)),  # the yi-6b serving shape: 512 CTAs, ~4 per SM
+    (32, 4, 33, 132, (5, 8)),  # a table width the split does not divide
+    (2, 2, 4, 132, (4, 1)),  # tiny: one entry a split
+    (1, 1, 1, 132, (1, 1)),
+    (64, 8, 5, 132, (2, 3)),  # a wide batch needs few splits
+    (32, 4, 32, 1, (1, 32)),  # one SM: no split
+])
+def test_paged_split_plan(B, nkv, n_p, sms, want):
+    n_split, per = split_plan(B, nkv, n_p, sms)
+    assert (n_split, per) == want
+    assert (n_split - 1) * per < n_p <= n_split * per  # no empty split, every entry covered
+    if n_p >= 4 * sms / (B * nkv):
+        assert B * nkv * n_split >= 3 * sms  # about 4 CTAs per SM where the table allows
+
+
+@pytest.mark.parametrize("dh,itemsize,g,fits", [
+    (128, 2, 8, True),  # yi-6b in bf16: 2 teams of 16 lanes, 4 heads each
+    (128, 4, 8, True),  # in f32: 1 team of 32 lanes, 8 heads
+    (128, 4, 9, False),  # 9 heads round up to 16 > 8 a team
+    (16, 2, 32, True),  # 16 teams of 2 lanes, 2 heads each
+    (16, 2, 33, False),  # 3 heads round up to 4 > 2 lanes
+    (64, 2, 1, True),
+])
+def test_paged_team_fits(dh, itemsize, g, fits):
+    assert team_fits(dh, itemsize, g) is fits
 
 
 # ------------------------------------------------------------ flash attention

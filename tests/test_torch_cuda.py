@@ -131,3 +131,80 @@ def test_cuda_flash_attention_matches_plain(cuda, B, nh, nkv, Sq, Skv, dh, windo
     torch.cuda.synchronize()
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# ------------------------------------------ the Hopper redesigns (bf16 wgmma
+# flash attention, split-K paged attention)
+def _flash_case(B, nh, nkv, Sq, Skv, dh, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(
+        torch.as_tensor(rng.normal(size=s).astype(np.float32)).to(device, dtype)
+        for s in ((B, nh, Sq, dh), (B, nkv, Skv, dh), (B, nkv, Skv, dh))
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [1, 63, 65, 129, 512, 1000])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_cuda_flash_attention_bf16_tiles(cuda, Sq, dh):
+    """The wgmma kernel at ragged and whole q tiles, every head dim."""
+    q, k, v = _flash_case(1, 8, 2, Sq, Sq, dh, torch.bfloat16, cuda, Sq * 3 + dh)
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nh,nkv,Sq,Skv,window,causal", [
+    (2, 8, 2, 100, 300, 0, True),  # Sq < Skv: suffix alignment, ragged
+    (1, 8, 1, 64, 1024, 0, True),  # one q tile at the end of a long stream
+    (1, 4, 2, 300, 300, 100, True),  # the window's edge cuts key tiles
+    (2, 4, 4, 200, 200, 64, True),  # a window of exactly one tile
+    (2, 8, 2, 130, 190, 0, False),  # not causal
+    (1, 4, 2, 1, 500, 37, True),  # one query over a window
+])
+@pytest.mark.parametrize("dh", [16, 64, 128])
+def test_cuda_flash_attention_bf16_masks(cuda, B, nh, nkv, Sq, Skv, window, causal, dh):
+    q, k, v = _flash_case(B, nh, nkv, Sq, Skv, dh, torch.bfloat16, cuda, Sq + Skv + window)
+    got = ops.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, sliding_window=window)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_p", [1, 5, 32, 33])
+@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_attention_splits(cuda, n_p, page, g, dtype):
+    """The split-K kernel over table widths the split does and does not
+    divide, every page size the pools use, MHA and yi-6b's GQA group."""
+    B, nkv, dh = 6, 2, 128
+    rng = np.random.default_rng(n_p * 100 + page + g)
+    args = _paged_inputs(rng, B, nkv * g, nkv, dh, max(64, 2 * n_p), page, n_p, dtype, cuda)
+    got = ops.paged_attention(*args)
+    want = ref.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["lengths_zero", "tables_all_holes"])
+def test_cuda_paged_attention_empty(cuda, dtype, case):
+    """Every lane of length 0, or a table of all -1: exactly 0, no NaN."""
+    rng = np.random.default_rng(7)
+    q, kp, vp, tables, lens = _paged_inputs(rng, 32, 32, 4, 128, 256, 16, 32, dtype, cuda)
+    if case == "lengths_zero":
+        lens = torch.zeros_like(lens)
+    else:
+        tables = torch.full_like(tables, -1)
+    got = ops.paged_attention(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(got))

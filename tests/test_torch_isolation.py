@@ -115,6 +115,40 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def test_smoke_reads_the_ptxas_report():
+    """The build keeps nvcc's -Xptxas -v report beside each library;
+    ``chip_smoke.ptxas_report`` gives each kernel's registers, spills and
+    any note that ptxas serialised its wgmma products, and
+    ``template_id`` finds a kernel's instance among the mangled names."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    hopper = "_ZN12_GLOBAL__N_122flash_attention_hopperILi128EEEv14CUtensorMap_stS1_S1_S1_iiiiiiif"
+    split = "_ZN12_GLOBAL__N_118paged_split_kernelI13__nv_bfloat16Li128ELi4EEEvPKT_S4_"
+    found = smoke.ptxas_report(
+        "ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions"
+        f" are serialized due to a branch in the function '{hopper}'\n"
+        f"ptxas info    : Compiling entry function '{hopper}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {hopper}\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n"
+        f"ptxas info    : Compiling entry function '{split}' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 104 registers, used 1 barriers\n")
+    assert found[split] == "104 registers, 0 bytes spill stores"
+    assert found[hopper].startswith("168 registers, 8 bytes spill stores")
+    assert "serialized" in found[hopper]
+    assert smoke.template_id("flash_attention_hopper", 128) in hopper
+    assert smoke.template_id("paged_split_kernel", "__nv_bfloat16", 128, 4) in split
+    assert smoke.template_id("paged_split_kernel", "__nv_bfloat16", 128, 8) not in split
+    assert smoke.template_id("flash_attention_kernel", "float", 128) == \
+        "22flash_attention_kernelIfLi128EE"
+
+
 @pytest.mark.cuda
 def test_cuda_request_without_a_build_raises(monkeypatch, tmp_path):
     """On the card, a kernel that cannot be built raises; nothing falls back
