@@ -5,13 +5,18 @@
 
 Phases, one line of numbers each:
   1. the card's name and power limit (nvidia-smi), then the kernels' build
-     and ptxas's registers and spills for the attention kernels;
+     and ptxas's registers and spills for page_move's, hot_bins' and the
+     attention kernels;
   2. each CUDA kernel against its plain PyTorch version on the card, at the
      slice's shapes, bit for bit, with its time (20 launches back to back
      between two CUDA events), its device time (profiler), for the
      attention kernels the wrapper's host time per call, the plain
      version's time, one library call's time and device time, and the bound
-     (bytes over HBM bandwidth);
+     (bytes over HBM bandwidth); ``page_move`` and ``hot_bins`` with their
+     wrappers' host time per call too; ``page_move`` also at phase 5's two row
+     widths, each plan with its entries per class of the kernel's schedule
+     (A/B/S, counted on the card and by ``ref.page_move_classes``; the data
+     plane's and the KV cache's plans must stage none);
   3. the slice end to end: ``CentralManager`` at 1,048,576 pages with 4 KiB
      of float32 content per page on the card, six colocated tenants, a
      seeded GUPS-style access stream, 32 ``run_epoch`` calls and one
@@ -89,9 +94,14 @@ def emit(phase: str, **nums) -> None:
     print(f"{phase}: " + " ".join(f"{k}={v}" for k, v in nums.items()), flush=True)
 
 
-# the attention kernels at the slice's head dim: (source, kernel, template
-# arguments), as phase 1 reports them from ptxas
+# page_move's three kernels, hot_bins' cooperative kernel and the attention
+# kernels at the slice's head dim: (source, kernel, template arguments), as
+# phase 1 reports them from ptxas
 PTXAS_KERNELS = (
+    ("page_copy", "move_mark"),
+    ("page_copy", "move_pass_a"),
+    ("page_copy", "move_pass_b"),
+    ("hot_bins", "hot_bins_kernel"),
     ("flash_attention", "flash_attention_hopper", 128),
     ("flash_attention", "flash_attention_kernel", "float", 128),
     ("paged_attention", "paged_split_kernel", "__nv_bfloat16", 128, 4),
@@ -101,8 +111,12 @@ PTXAS_KERNELS = (
 
 
 def template_id(name: str, *args) -> str:
-    """How the kernel ``name<args...>`` is spelled inside its mangled symbol:
-    an int argument as Li<n>E, float as f, a class by its length and name."""
+    """How the kernel ``name<args...>`` is spelled inside its mangled symbol
+    (a kernel in a namespace, the anonymous one included): an int argument
+    as Li<n>E, float as f, a class by its length and name; a kernel that is
+    no template as its name closing the namespace."""
+    if not args:
+        return f"{len(name)}{name}E"
     enc = "".join(f"Li{a}E" if isinstance(a, int) else ("f" if a == "float" else f"{len(a)}{a}")
                   for a in args)
     return f"{len(name)}{name}I{enc}E"
@@ -252,7 +266,7 @@ def fill_pattern(torch, pool, chunk: int = 65536) -> None:
 def kernel_checks(torch, np, device):
     """Each kernel against its plain version at the slice's shapes."""
     from repro_torch.core.sampler import sample_accesses
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, page_copy, ref
 
     rows = FAST + PAGES + 1
     trash = rows - 1
@@ -282,6 +296,10 @@ def kernel_checks(torch, np, device):
     torch.cuda.synchronize()
     check(torch.equal(pool_a.view(torch.int32), pool_b.view(torch.int32)),
           "page_move kernel bit-equal to its plain version")
+    classes = move_class_counts(ref, s, d, rows)
+    check(classes[2] == 0, f"the data plane's plan stages no entry (A, B, S = {classes})")
+    check(page_copy.page_move_classes(pool_a).tolist() == classes,
+          f"page_move's classes counted on the card are {classes}")
     err = max_abs_err(torch, pool_a, pool_b)
     s64, d64 = s.to(torch.int64), d.to(torch.int64)
     n_real = 2 * n_pairs
@@ -292,11 +310,13 @@ def kernel_checks(torch, np, device):
     out["page_move"] = dict(
         max_abs_err=err,
         ms=time_cuda(torch, lambda: ops.page_move(pool_a, s, d)),
+        host_ms=host_ms(torch, lambda: ops.page_move(pool_a, s, d)),
         plain_ms=time_cuda(torch, lambda: ref.page_move_ref(pool_b, s, d)),
         library_ms=time_cuda(torch, library),
         library_device_ms=device_ms(torch, library),
         bytes=2 * n_real * row_bytes + 2 * 4 * M,
         shape=f"pool[{rows},{ELEMS}]f32 plan={M} real={n_real}",
+        classes_a_b_s="/".join(map(str, classes)),
     )
 
     # page_copy: a full staging pool of plan_slots rows into the pool, the
@@ -354,6 +374,7 @@ def kernel_checks(torch, np, device):
     out["hot_bins"] = dict(
         max_abs_err=err,
         ms=time_cuda(torch, lambda: ops.hot_bins(ids, cin, num_bins=6)),
+        host_ms=host_ms(torch, lambda: ops.hot_bins(ids, cin, num_bins=6)),
         plain_ms=time_cuda(torch, lambda: ref.hot_bins_ref(ids, cin, 6)),
         library_ms=time_cuda(torch, lambda: torch.bincount(ids, minlength=PAGES)),
         library_device_ms=device_ms(torch, lambda: torch.bincount(ids, minlength=PAGES)),
@@ -369,6 +390,79 @@ def kernel_checks(torch, np, device):
     for name, r in out.items():
         r["bound_ms"] = bound_ms(r["bytes"])
         emit(f"phase2 {name}", **r)
+    return out
+
+
+def move_class_counts(ref, s, d, rows: int) -> list:
+    """[A, B, S]: the plan's entries in each class of page_move's schedule."""
+    cls = ref.page_move_classes(s, d, rows)
+    return [int((cls == c).sum()) for c in (ref.MOVE_A, ref.MOVE_B, ref.MOVE_S)]
+
+
+# phase 5's page_move calls: one migrating epoch's plan as TieredPagedKV.migrate
+# builds it (64 demotes to free slow slots, then 64 promotes into the fast
+# slots those demotes vacate, last vacated first) expanded over yi-6b's 32
+# layers, on the KV pool's rows (16 tokens x 4 heads x 128 bf16: 16 KiB) and
+# the Quest summaries' rows (4 heads x 128 f32: 2 KiB)
+KV_LAYERS, KV_MOVES = 32, 128
+MOVE_WIDTHS = (("kv16k", "bfloat16", 16 * 4 * 128), ("summary2k", "float32", 4 * 128))
+
+
+def kv_plan(np, rng):
+    n_fast, n_slots = SV_FAST, SV_FAST + SV_SLOW
+    half = KV_MOVES // 2
+    fast = rng.choice(n_fast, half, replace=False)
+    slow = n_fast + rng.choice(n_slots - n_fast, KV_MOVES, replace=False)  # free, then owned
+    src = np.concatenate([fast, slow[half:]])
+    dst = np.concatenate([slow[:half], fast[::-1]])
+    base = np.arange(KV_LAYERS)[:, None] * n_slots
+    return [(base + x[None]).reshape(-1).astype(np.int32) for x in (src, dst)]
+
+
+def page_move_widths(torch, np, device):
+    """``page_move`` at phase 5's two row widths against its plain version,
+    with its times, its library call's, the bound and the plan's classes."""
+    from repro_torch.kernels import ops, page_copy, ref
+
+    src, dst = kv_plan(np, np.random.default_rng(SEED + 5))
+    s, d = (torch.as_tensor(x, device=device) for x in (src, dst))
+    s64, d64 = s.to(torch.int64), d.to(torch.int64)
+    rows, m = KV_LAYERS * (SV_FAST + SV_SLOW), len(src)
+    out = {}
+    for name, dname, elems in MOVE_WIDTHS:
+        g = torch.Generator(device=device)
+        g.manual_seed(SEED + 6)
+        pool_a = torch.randn((rows, elems), generator=g, device=device,
+                             dtype=getattr(torch, dname))
+        pool_b = pool_a.clone()
+        ops.page_move(pool_a, s, d)
+        ref.page_move_ref(pool_b, s, d)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(torch, pool_a), bits(torch, pool_b)),
+              f"page_move {name} bit-equal to its plain version")
+        classes = move_class_counts(ref, s, d, rows)
+        check(classes[2] == 0, f"the KV cache's plan stages no entry (A, B, S = {classes})")
+        check(page_copy.page_move_classes(pool_a).tolist() == classes,
+              f"page_move's classes counted on the card are {classes}")
+        row_bytes = elems * pool_a.element_size()
+
+        def library():
+            return pool_b.index_copy_(0, d64, pool_b.index_select(0, s64))
+
+        out[name] = dict(
+            max_abs_err=max_abs_err(torch, pool_a, pool_b),
+            ms=time_cuda(torch, lambda: ops.page_move(pool_a, s, d)),
+            device_ms=device_ms(torch, lambda: ops.page_move(pool_a, s, d)),
+            plain_ms=time_cuda(torch, lambda: ref.page_move_ref(pool_b, s, d)),
+            library_ms=time_cuda(torch, library),
+            library_device_ms=device_ms(torch, library),
+            bound_ms=bound_ms(2 * m * row_bytes + 2 * 4 * m),
+            classes_a_b_s="/".join(map(str, classes)),
+            shape=f"pool[{rows},{elems}]{dname} plan={m}",
+        )
+        del pool_a, pool_b
+        torch.cuda.empty_cache()
+        emit(f"phase2 page_move {name}", **out[name])
     return out
 
 
@@ -986,11 +1080,13 @@ def main() -> int:
         found = ptxas_report(log.read_text(errors="replace")) if log.exists() else {}
         tid = template_id(name, *args)
         lines = [line for fn, line in found.items() if tid in fn]
-        check(len(lines) == 1, f"ptxas reports {name}<{', '.join(map(str, args))}> once in {log}")
-        print(f"phase1 ptxas {name}<{', '.join(map(str, args))}>: {lines[0]}", flush=True)
+        full = f"{name}<{', '.join(map(str, args))}>" if args else name
+        check(len(lines) == 1, f"ptxas reports {full} once in {log}")
+        print(f"phase1 ptxas {full}: {lines[0]}", flush=True)
     device = torch.device("cuda")
 
     kern = kernel_checks(torch, np, device)
+    page_move_widths(torch, np, device)
     attn = attention_checks(torch, np, device)
 
     torch.cuda.reset_peak_memory_stats()

@@ -1,6 +1,7 @@
 """Wrapper of the CUDA ``hot_bins`` kernel (``csrc/hot_bins.cu``), the
-port of the reference's Pallas ``hot_bins``: an atomic histogram of the
-sampled page ids fused with the heat-bin pass.
+port of the reference's Pallas ``hot_bins``: the sampled page ids added to
+the counts with atomics and the heat bins computed, in one cooperative
+launch.
 
 CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to
 ``kernels/ref.hot_bins_ref``. Launches are counted in ``LAUNCHES``.
@@ -21,7 +22,7 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 def _lib():
     lib = _build.load("hot_bins")
     if not getattr(lib, "_typed", False):
-        lib.hot_bins.argtypes = [_P, _LL, _P, _P, _P, _P, _I, _I, _P]
+        lib.hot_bins.argtypes = [_P, _LL, _P, _P, _P, _I, _I, _P]
         lib.hot_bins.restype = _I
         lib._typed = True
     return lib
@@ -29,7 +30,7 @@ def _lib():
 
 def hot_bins(page_ids: torch.Tensor, counts_in: torch.Tensor, *, num_bins: int = 6):
     """Returns (counts_out i32[P], bins i32[P]) for int32 ``page_ids`` [N]
-    (entries < 0 ignored) and int32 ``counts_in`` [P]."""
+    (entries < 0 or >= P ignored) and int32 ``counts_in`` [P]."""
     for name, t in (("page_ids", page_ids), ("counts_in", counts_in)):
         if not t.is_cuda or t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 1-D int32 CUDA tensor")
@@ -42,11 +43,10 @@ def hot_bins(page_ids: torch.Tensor, counts_in: torch.Tensor, *, num_bins: int =
         raise ValueError("hot_bins takes fewer than 2^31 pages")
     counts_out = torch.empty_like(counts_in)
     bins = torch.empty_like(counts_in)
-    hist = torch.empty(P if N else 0, dtype=torch.int32, device=counts_in.device)
     stream = torch.cuda.current_stream(counts_in.device).cuda_stream
     err = _lib().hot_bins(
-        page_ids.data_ptr(), N, counts_in.data_ptr(), hist.data_ptr(), counts_out.data_ptr(),
-        bins.data_ptr(), P, num_bins, stream,
+        page_ids.data_ptr(), N, counts_in.data_ptr(), counts_out.data_ptr(), bins.data_ptr(), P,
+        num_bins, stream,
     )
     LAUNCHES["hot_bins"] += 1
     if err != 0:

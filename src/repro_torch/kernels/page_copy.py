@@ -2,14 +2,21 @@
 
 ``page_move`` and ``page_copy`` replace the reference's Pallas kernels of
 the same names. They take CUDA tensors only: each checks device, dtype,
-shape and contiguity, allocates its scratch with ``torch.empty``, launches
-on the current stream, raises if the launch failed, and counts its launches
-in ``LAUNCHES``. ``kernels/ops.py`` sends CPU tensors to the plain versions
-in ``kernels/ref.py`` instead.
+shape and contiguity, launches on the current stream, raises if the launch
+failed, and counts its calls in ``LAUNCHES`` (one per call; ``page_move``'s
+call is three kernel launches). ``kernels/ops.py`` sends CPU tensors to the
+plain versions in ``kernels/ref.py`` instead.
+
+``page_move`` keeps a workspace per device between calls (``_Workspace``):
+the row marks, which its kernels leave zero, the compacted plan, the
+classes, the counters and the scratch for staged entries, grown to the
+largest call seen and never allocated per call. Calls on one device must
+share one stream.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
@@ -23,12 +30,45 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 def _lib():
     lib = _build.load("page_copy")
     if not getattr(lib, "_typed", False):
-        lib.page_move.argtypes = [_P, _LL, _P, _P, _I, _LL, _P, _P]
+        lib.page_move.argtypes = [_P, _LL, _P, _P, _I, _LL, _P, _P, _P, _P, _I, _P, _P]
         lib.page_move.restype = _I
         lib.page_copy.argtypes = [_P, _LL, _P, _LL, _P, _P, _I, _LL, _P]
         lib.page_copy.restype = _I
         lib._typed = True
     return lib
+
+
+# page_move's counter words (csrc/page_copy.cu): the class counts A, B, S of
+# the last call, 32 words apart, then the two alternating real counts
+_CTR_WORDS = 5 * 32
+_CTR_CLASSES = [0, 32, 64]
+
+
+class _Workspace:
+    """page_move's buffers on one device, grown to the largest call seen."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.parity = 0
+        self.marks = torch.zeros(0, dtype=torch.uint8, device=device)  # kept zero
+        self.plan = torch.empty(0, dtype=torch.int32, device=device)
+        self.cls = torch.empty(0, dtype=torch.int32, device=device)
+        self.ctr = torch.zeros(_CTR_WORDS, dtype=torch.int32, device=device)
+        self.scratch = torch.empty(0, dtype=torch.uint8, device=device)
+
+    def fit(self, rows: int, m: int, row_bytes: int) -> None:
+        if self.marks.numel() < 2 * rows:
+            self.marks = torch.zeros(2 * rows, dtype=torch.uint8, device=self.device)
+        if self.cls.numel() < m:
+            self.plan = torch.empty(2 * m, dtype=torch.int32, device=self.device)
+            self.cls = torch.empty(m, dtype=torch.int32, device=self.device)
+        # the worst case: every real entry staged
+        if self.scratch.numel() < min(m, rows) * row_bytes:
+            self.scratch = torch.empty(min(m, rows) * row_bytes, dtype=torch.uint8,
+                                       device=self.device)
+
+
+_WORKSPACES: Dict[torch.device, _Workspace] = {}
 
 
 def _check_pool(name: str, pool: torch.Tensor) -> None:
@@ -52,21 +92,37 @@ def _raise_on(err: int, what: str) -> None:
 
 def page_move(pool: torch.Tensor, src_ids: torch.Tensor, dst_ids: torch.Tensor) -> torch.Tensor:
     """In place ``pool[dst_ids[i]] = pool[src_ids[i]]`` with gather
-    semantics (every read sees the pre-plan pool). Returns ``pool``."""
+    semantics (every read sees the pre-plan pool). Entries with equal ids
+    or an id outside the pool do nothing. Returns ``pool``."""
     _check_pool("pool", pool)
     m = src_ids.shape[0]
     _check_ids("src_ids", src_ids, pool.device, m)
     _check_ids("dst_ids", dst_ids, pool.device, m)
-    row_bytes = pool.shape[1] * pool.element_size()
-    scratch = torch.empty((m, row_bytes), dtype=torch.uint8, device=pool.device)
+    rows, row_bytes = pool.shape[0], pool.shape[1] * pool.element_size()
+    ws = _WORKSPACES.get(pool.device)
+    if ws is None:
+        ws = _WORKSPACES[pool.device] = _Workspace(pool.device)
+    ws.fit(rows, m, row_bytes)
     stream = torch.cuda.current_stream(pool.device).cuda_stream
     err = _lib().page_move(
-        pool.data_ptr(), pool.shape[0], src_ids.data_ptr(), dst_ids.data_ptr(), m,
-        row_bytes, scratch.data_ptr(), stream,
+        pool.data_ptr(), rows, src_ids.data_ptr(), dst_ids.data_ptr(), m, row_bytes,
+        ws.marks.data_ptr(), ws.plan.data_ptr(), ws.cls.data_ptr(), ws.ctr.data_ptr(),
+        ws.parity, ws.scratch.data_ptr(), stream,
     )
     LAUNCHES["page_move"] += 1
+    if err != 0:
+        del _WORKSPACES[pool.device]  # its marks may no longer be zero
     _raise_on(err, "page_move launch failed")
+    if m > 0 and row_bytes > 0:
+        ws.parity ^= 1
     return pool
+
+
+def page_move_classes(pool: torch.Tensor) -> torch.Tensor:
+    """i32[3]: the numbers of A, B and S entries (``ref.page_move_classes``)
+    that the last ``page_move`` call on ``pool``'s device counted, as a
+    tensor on the card (reading it waits for that call)."""
+    return _WORKSPACES[pool.device].ctr[_CTR_CLASSES]
 
 
 def page_copy(

@@ -23,11 +23,12 @@ def bit_length(c: torch.Tensor) -> torch.Tensor:
 
 
 def hot_bins_ref(page_ids: torch.Tensor, counts_in: torch.Tensor, num_bins: int):
-    """(counts_out i32[P], bins i32[P]): ``counts_in + bincount(ids >= 0)``
-    and ``clip(floor(log2 c) + 1, 0, num_bins - 1)`` (0 when c <= 0).
-    int32 addition wraps, as the reference's does."""
+    """(counts_out i32[P], bins i32[P]): ``counts_in`` plus the bincount of
+    the ids in [0, P) (others are ignored, as the reference's dense compare
+    ignores them) and ``clip(floor(log2 c) + 1, 0, num_bins - 1)`` (0 when
+    c <= 0). int32 addition wraps, as the reference's does."""
     P = counts_in.shape[0]
-    ids = torch.where(page_ids >= 0, page_ids.to(torch.int64), P)
+    ids = torch.where((page_ids >= 0) & (page_ids < P), page_ids.to(torch.int64), P)
     hist = torch.zeros(P + 1, dtype=torch.int32, device=counts_in.device)
     hist.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
     counts = counts_in.to(torch.int32) + hist[:P]
@@ -48,6 +49,59 @@ def page_move_ref(pool, src_ids, dst_ids):
     with gather semantics: every read sees the pre-plan pool (the gather
     completes before the scatter starts)."""
     pool[dst_ids.to(torch.int64)] = pool[src_ids.to(torch.int64)]
+    return pool
+
+
+# page_move_classes: the class of each plan entry in the CUDA kernel's schedule
+MOVE_NONE, MOVE_A, MOVE_B, MOVE_S = 0, 1, 2, 3
+
+
+def page_move_classes(src_ids, dst_ids, rows: int) -> torch.Tensor:
+    """i64[m]: each entry's class in the CUDA ``page_move``'s schedule. An
+    entry is *real* when its ids differ and both lie in [0, rows); others
+    are ``MOVE_NONE``. A real entry is ``MOVE_A`` when no real entry reads
+    its destination (copied in pass A), ``MOVE_B`` when some real entry
+    reads its destination and none writes its source (copied in pass B),
+    and ``MOVE_S`` otherwise (staged: read into scratch in pass A, written
+    in pass B)."""
+    s, d = src_ids.to(torch.int64), dst_ids.to(torch.int64)
+    real = (s != d) & (s >= 0) & (s < rows) & (d >= 0) & (d < rows)
+    read = torch.zeros(rows + 1, dtype=torch.bool, device=s.device)
+    written = torch.zeros(rows + 1, dtype=torch.bool, device=s.device)
+    read[torch.where(real, s, rows)] = True
+    written[torch.where(real, d, rows)] = True
+    read[rows] = written[rows] = False
+    dst_read = read[torch.where(real, d, rows)]
+    src_written = written[torch.where(real, s, rows)]
+    cls = torch.where(dst_read, torch.where(src_written, MOVE_S, MOVE_B), MOVE_A)
+    return torch.where(real, cls, MOVE_NONE)
+
+
+def page_move_phased_ref(pool, src_ids, dst_ids, *, reverse: bool = False):
+    """``page_move`` as the CUDA kernel schedules it, in place; returns
+    ``pool``. Pass A copies the A entries and reads the S entries' sources
+    into scratch; pass B then copies the B entries and writes the S entries
+    from scratch; other entries do nothing. Within a pass the entries run
+    one at a time, in plan order or (``reverse``) the other way: the card
+    runs them in no order, so a pass that reads a row it also writes would
+    show here as a difference between the two orders. Agrees with
+    ``page_move_ref`` on every plan whose real destinations are distinct.
+    Nothing on the main path calls it: it is the plain model of the
+    kernel's schedule."""
+    cls = page_move_classes(src_ids, dst_ids, pool.shape[0]).tolist()
+    s, d = src_ids.tolist(), dst_ids.tolist()
+    order = range(len(cls) - 1, -1, -1) if reverse else range(len(cls))
+    scratch = {}
+    for i in order:  # pass A
+        if cls[i] == MOVE_A:
+            pool[d[i]] = pool[s[i]]
+        elif cls[i] == MOVE_S:
+            scratch[i] = pool[s[i]].clone()
+    for i in order:  # pass B
+        if cls[i] == MOVE_B:
+            pool[d[i]] = pool[s[i]]
+        elif cls[i] == MOVE_S:
+            pool[d[i]] = scratch[i]
     return pool
 
 

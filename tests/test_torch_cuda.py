@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref
+from _page_move_plans import FAMILIES, A, B, S
+from repro_torch.kernels import ops, page_copy, ref
 
 
 @pytest.fixture
@@ -66,6 +67,111 @@ def test_cuda_hot_bins_matches_plain(cuda, N, P):
     gc, gb = ops.hot_bins(ids, cin, num_bins=6)
     torch.cuda.synchronize()
     assert torch.equal(gc, wc) and torch.equal(gb, wb)
+
+
+# ------------------------------------------ page_move's one-pass schedule
+# (mark, pass A, pass B) on every plan family, and hot_bins' cooperative kernel
+MOVE_WIDTHS = [
+    (torch.float32, 33), (torch.float32, 100), (torch.float32, 257), (torch.float32, 1024),
+    (torch.bfloat16, 8192),  # a yi-6b KV page row (16 tokens x 4 heads x 128): 16 KiB
+    (torch.float32, 512),  # its Quest summary row: 2 KiB
+]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _move_case(family, dtype, E, device, seed, rows=None):
+    rows_f, src, dst, want = FAMILIES[family](np.random.default_rng(seed))
+    rows = rows or rows_f
+    pool = np.random.default_rng(seed + 1).normal(size=(rows, E)).astype(np.float32)
+    ids = [torch.as_tensor(np.asarray(x, np.int64).astype(np.int32), device=device)
+           for x in (src, dst)]
+    return torch.as_tensor(pool).to(device, dtype), ids[0], ids[1], np.asarray(want)
+
+
+def _gather(pool, s, d):
+    """Gather semantics on the in-range entries (the kernel skips the rest)."""
+    rows = pool.shape[0]
+    keep = (s >= 0) & (s < rows) & (d >= 0) & (d < rows)
+    return ref.page_move_ref(pool.clone(), s[keep], d[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("dtype,E", MOVE_WIDTHS)
+def test_cuda_page_move_plans(cuda, family, dtype, E):
+    """Bit-equal to the gather on data-plane and KV plans, swaps, cycles,
+    chains, trash, empty and out-of-range plans; the classes counted on the
+    card are ``ref.page_move_classes``'."""
+    pool, s, d, want = _move_case(family, dtype, E, cuda, E)
+    expect = _gather(pool, s, d)
+    got = ops.page_move(pool, s, d)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(expect))
+    if len(want):
+        classes = ref.page_move_classes(s, d, pool.shape[0]).cpu().numpy()
+        assert np.array_equal(classes, want)
+        counted = page_copy.page_move_classes(pool).tolist()
+        assert counted == [int((want == c).sum()) for c in (A, B, S)]
+    assert not page_copy._WORKSPACES[pool.device].marks.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,E", [(torch.float32, 33), (torch.bfloat16, 8192)])
+def test_cuda_page_move_back_to_back(cuda, dtype, E):
+    """Four different plans on one pool with no synchronisation between
+    them: each call finds the marks its predecessor left clean."""
+    pool, *_ = _move_case("kv", dtype, E, cuda, 3)  # the largest plan's rows
+    want = pool.clone()
+    for family, seed in (("dataplane", 3), ("swaps", 4), ("chains", 5), ("kv", 6),
+                         ("dataplane", 7)):
+        _, s, d, _ = _move_case(family, dtype, 1, cuda, seed)
+        want = _gather(want, s, d)
+        ops.page_move(pool, s, d)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(pool), _bits(want))
+    assert not page_copy._WORKSPACES[pool.device].marks.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sorted_runs", "one_page", "pages_not_a_multiple_of_4",
+                                  "no_ids", "out_of_range", "wrap", "unaligned"])
+def test_cuda_hot_bins_cases(cuda, case):
+    rng = np.random.default_rng(17)
+    P = 1 << 16
+    cin = rng.integers(0, 40, P)
+    if case == "sorted_runs":  # the sampler's ids: runs of one page, sorted
+        ids = np.repeat(np.arange(P), rng.poisson(3.0, P))
+    elif case == "one_page":
+        ids = np.full(200_000, 777)
+    elif case == "pages_not_a_multiple_of_4":
+        P = 1_000_003
+        cin = rng.integers(0, 40, P)
+        ids = np.sort(rng.integers(0, P, 300_000))
+    elif case == "no_ids":
+        P = 1_000_003
+        cin = rng.integers(-3, 2**20, P)
+        ids = np.zeros(0, np.int64)
+    elif case == "out_of_range":
+        ids = np.concatenate([rng.integers(-5, P + 5, 100_000),
+                              [-(2**31), 2**31 - 1, P, P + 1, -1]])
+    elif case == "wrap":  # counts past 2^31 wrap to negative and bin to 0
+        cin = np.full(P, 2**31 - 3)
+        ids = np.repeat(np.arange(0, P, 7), 5)
+    else:  # counts_in a view one element into its storage: no 16-byte vectors
+        ids = rng.integers(0, P, 50_000)
+    ids_t = torch.as_tensor(ids.astype(np.int32), device=cuda)
+    cin_t = torch.as_tensor(cin.astype(np.int32), device=cuda)
+    if case == "unaligned":
+        cin_t = torch.cat([cin_t[:1], cin_t])[1:]
+    wc, wb = ref.hot_bins_ref(ids_t, cin_t, 6)
+    gc, gb = ops.hot_bins(ids_t, cin_t, num_bins=6)
+    torch.cuda.synchronize()
+    assert torch.equal(gc, wc) and torch.equal(gb, wb)
+    if case == "wrap":
+        assert (gc < 0).any() and (gb[gc < 0] == 0).all()
 
 
 # Tolerances of the reference's kernel tests (tests/test_kernels.py:21): the

@@ -147,6 +147,11 @@ def test_smoke_reads_the_ptxas_report():
     assert smoke.template_id("paged_split_kernel", "__nv_bfloat16", 128, 8) not in split
     assert smoke.template_id("flash_attention_kernel", "float", 128) == \
         "22flash_attention_kernelIfLi128EE"
+    # a kernel that is no template, in the anonymous namespace
+    mark = "_ZN12_GLOBAL__N_19move_markEPKiS1_ixPhP4int2Pii"
+    assert smoke.template_id("move_mark") in mark
+    assert smoke.template_id("move_pass_a") not in mark
+    assert smoke.template_id("mark") not in mark
 
 
 @pytest.mark.cuda
