@@ -28,16 +28,39 @@ Phases, one line of numbers each:
   5. the serving slice, ``serve-yi6b``: yi-6b at full width and depth (32
      layers, bf16 weights from a seed) over a bf16 tiered paged KV pool of
      512 fast + 4,096 slow 16-token pages, ``ServingEngine`` at batch 32
-     under an ``OpenLoopDriver`` with two tenants, 24 warm-up and 256 timed
+     under an ``OpenLoopDriver`` with two tenants, 24 warm-up and 128 timed
      steps; every prefill goes through ``flash_attention``, every decode
      step through ``paged_attention``, every migrating epoch through
      ``page_move``, and the slice's invariants are checked;
   6. the same slice at full width cut to 2 layers in float32, on the card
      and on the CPU with the same weights: logits, greedy tokens, per-step
-     access counts, manager state and the slot map compared.
+     access counts, manager state and the slot map compared; for yi-6b and
+     for qwen2-moe-a2.7b, whose routings are compared too (gate ids that
+     differ per layer, the smallest top-k margin where they do);
+  7. ``serve-qwen2moe``: phase 5's serving geometry and tenants with
+     qwen2-moe-a2.7b at full width and depth (24 layers, 60 routed experts
+     top-4 padded to 64, 4 shared; 28.2 GiB of weights), 16 warm-up and 128
+     timed steps, the dropped MoE assignments of each decode step counted
+     (of all 32 lanes, and of the lanes holding a request: the idle lanes
+     are routed too and take capacity), then one MoE block at the decode
+     batch split into routing, expert products, shared experts and the rest
+     (dispatch and combine);
+  8. ``coloc-legs``: the three placements of
+     ``benchmarks/serving_colocation.py`` (maxmem, static, fixed) through
+     ``make_serving_manager`` at that benchmark's constants on phase 7's
+     weights: migrations only under maxmem, quotas held under fixed, freed
+     slots clean; its claim row printed as found;
+  9. ``expert-tiering``: ``ExpertTierManager`` over the 1,440 expert pages
+     (5.5 MiB rows, a quarter fast) of phase 7's weights, a fixed batch
+     through every layer's ``moe_layer_from_pools`` for 64 steps (8
+     epochs): every ``page_move`` call all staged (class S), every expert's
+     rows bit-equal to its weights wherever it moved, layer 0's output
+     unchanged.
 Phase 2 also holds ``paged_attention`` and ``flash_attention`` against their
 plain versions, in float32 and bfloat16, at phase 5's shapes (flash at both
-tenants' prompt lengths, 1,024 and 512).
+tenants' prompt lengths, 1,024 and 512) and in bfloat16 at phase 7's (16
+query heads over 16 KV heads), and ``page_move`` at phase 7's K/V (64 KiB)
+and summary (8 KiB) rows and at the expert rows with an all-swap plan.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises, and
 the script then exits non-zero without printing a result. It needs a CUDA
@@ -45,6 +68,7 @@ device and the ``src/repro_torch`` package beside it.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -88,6 +112,14 @@ CHECK_PAGES = 65_536  # the GPU-vs-CPU run of phase 4
 def check(cond, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def free_device(torch) -> None:
+    """Release what an earlier phase left: the timing wrappers close over
+    the engine's parts, so an engine, its KV pools and its weights die in
+    reference cycles that only the collector breaks."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def emit(phase: str, **nums) -> None:
@@ -243,8 +275,11 @@ def device_ms(torch, fn, reps: int = 5):
     return None
 
 
-def max_abs_err(torch, a, b, chunk: int = 65536) -> float:
+def max_abs_err(torch, a, b) -> float:
+    """Largest |a - b| over two pools of rows, in float64, a few hundred MiB
+    of rows at a time."""
     err = 0.0
+    chunk = max(1, (1 << 26) // max(a[0].numel(), 1))
     for lo in range(0, a.shape[0], chunk):
         d = (a[lo : lo + chunk].to(torch.float64) - b[lo : lo + chunk].to(torch.float64))
         err = max(err, float(d.abs().max()))
@@ -399,70 +434,118 @@ def move_class_counts(ref, s, d, rows: int) -> list:
     return [int((cls == c).sum()) for c in (ref.MOVE_A, ref.MOVE_B, ref.MOVE_S)]
 
 
-# phase 5's page_move calls: one migrating epoch's plan as TieredPagedKV.migrate
-# builds it (64 demotes to free slow slots, then 64 promotes into the fast
-# slots those demotes vacate, last vacated first) expanded over yi-6b's 32
-# layers, on the KV pool's rows (16 tokens x 4 heads x 128 bf16: 16 KiB) and
-# the Quest summaries' rows (4 heads x 128 f32: 2 KiB)
-KV_LAYERS, KV_MOVES = 32, 128
-MOVE_WIDTHS = (("kv16k", "bfloat16", 16 * 4 * 128), ("summary2k", "float32", 4 * 128))
+# the serving phases' page_move calls: one migrating epoch's plan as
+# TieredPagedKV.migrate builds it (64 demotes to free slow slots, then 64
+# promotes into the fast slots those demotes vacate, last vacated first)
+# expanded over the model's layers, on the KV pool's rows (16 tokens x the KV
+# heads x 128 bf16) and the Quest summaries' rows (the KV heads x 128 f32):
+# yi-6b's (phase 5: 32 layers, 16 KiB and 2 KiB) and qwen2-moe-a2.7b's
+# (phase 7: 24 layers, 64 KiB and 8 KiB)
+KV_MOVES = 128
+MOVE_WIDTHS = {
+    "yi-6b": (32, (("kv16k", "bfloat16", 16 * 4 * 128), ("summary2k", "float32", 4 * 128))),
+    "qwen2-moe-a2.7b": (24, (("kv64k", "bfloat16", 16 * 16 * 128),
+                             ("summary8k", "float32", 16 * 128))),
+}
 
 
-def kv_plan(np, rng):
+def kv_plan(np, rng, layers: int):
     n_fast, n_slots = SV_FAST, SV_FAST + SV_SLOW
     half = KV_MOVES // 2
     fast = rng.choice(n_fast, half, replace=False)
     slow = n_fast + rng.choice(n_slots - n_fast, KV_MOVES, replace=False)  # free, then owned
     src = np.concatenate([fast, slow[half:]])
     dst = np.concatenate([slow[:half], fast[::-1]])
-    base = np.arange(KV_LAYERS)[:, None] * n_slots
+    base = np.arange(layers)[:, None] * n_slots
     return [(base + x[None]).reshape(-1).astype(np.int32) for x in (src, dst)]
 
 
-def page_move_widths(torch, np, device):
-    """``page_move`` at phase 5's two row widths against its plain version,
-    with its times, its library call's, the bound and the plan's classes."""
+def check_page_move(torch, np, pool_a, src, dst, name: str, staged: bool):
+    """``page_move`` on ``pool_a`` against its plain version on a copy,
+    with its times, its library call's (``index_select`` + ``index_copy_``),
+    the bound and the plan's classes: none staged (the KV cache's plans) or
+    all staged (an expert migration's swaps)."""
     from repro_torch.kernels import ops, page_copy, ref
 
-    src, dst = kv_plan(np, np.random.default_rng(SEED + 5))
+    device = pool_a.device
     s, d = (torch.as_tensor(x, device=device) for x in (src, dst))
     s64, d64 = s.to(torch.int64), d.to(torch.int64)
-    rows, m = KV_LAYERS * (SV_FAST + SV_SLOW), len(src)
+    rows, elems, m = pool_a.shape[0], pool_a.shape[1], len(src)
+    pool_b = pool_a.clone()
+    ops.page_move(pool_a, s, d)
+    ref.page_move_ref(pool_b, s, d)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(torch, pool_a), bits(torch, pool_b)),
+          f"page_move {name} bit-equal to its plain version")
+    classes = move_class_counts(ref, s, d, rows)
+    want = [0, 0, m] if staged else [classes[0], classes[1], 0]
+    check(classes == want, f"page_move {name}: the plan's classes A, B, S are {classes}")
+    check(page_copy.page_move_classes(pool_a).tolist() == classes,
+          f"page_move's classes counted on the card are {classes}")
+    row_bytes = elems * pool_a.element_size()
+
+    def library():
+        return pool_b.index_copy_(0, d64, pool_b.index_select(0, s64))
+
+    out = dict(
+        max_abs_err=max_abs_err(torch, pool_a, pool_b),
+        ms=time_cuda(torch, lambda: ops.page_move(pool_a, s, d)),
+        device_ms=device_ms(torch, lambda: ops.page_move(pool_a, s, d)),
+        plain_ms=time_cuda(torch, lambda: ref.page_move_ref(pool_b, s, d)),
+        library_ms=time_cuda(torch, library),
+        library_device_ms=device_ms(torch, library),
+        bound_ms=bound_ms(2 * m * row_bytes + 2 * 4 * m),
+        classes_a_b_s="/".join(map(str, classes)),
+        shape=f"pool[{rows},{elems}]{str(pool_a.dtype).split('.')[-1]} plan={m}",
+    )
+    del pool_b
+    torch.cuda.empty_cache()
+    emit(f"phase2 page_move {name}", **out)
+    return out
+
+
+def page_move_widths(torch, np, device, arch: str):
+    """``page_move`` at a serving phase's two row widths (``MOVE_WIDTHS``)."""
+    layers, widths = MOVE_WIDTHS[arch]
+    src, dst = kv_plan(np, np.random.default_rng(SEED + 5), layers)
+    rows = layers * (SV_FAST + SV_SLOW)
     out = {}
-    for name, dname, elems in MOVE_WIDTHS:
+    for name, dname, elems in widths:
         g = torch.Generator(device=device)
         g.manual_seed(SEED + 6)
-        pool_a = torch.randn((rows, elems), generator=g, device=device,
-                             dtype=getattr(torch, dname))
-        pool_b = pool_a.clone()
-        ops.page_move(pool_a, s, d)
-        ref.page_move_ref(pool_b, s, d)
-        torch.cuda.synchronize()
-        check(torch.equal(bits(torch, pool_a), bits(torch, pool_b)),
-              f"page_move {name} bit-equal to its plain version")
-        classes = move_class_counts(ref, s, d, rows)
-        check(classes[2] == 0, f"the KV cache's plan stages no entry (A, B, S = {classes})")
-        check(page_copy.page_move_classes(pool_a).tolist() == classes,
-              f"page_move's classes counted on the card are {classes}")
-        row_bytes = elems * pool_a.element_size()
-
-        def library():
-            return pool_b.index_copy_(0, d64, pool_b.index_select(0, s64))
-
-        out[name] = dict(
-            max_abs_err=max_abs_err(torch, pool_a, pool_b),
-            ms=time_cuda(torch, lambda: ops.page_move(pool_a, s, d)),
-            device_ms=device_ms(torch, lambda: ops.page_move(pool_a, s, d)),
-            plain_ms=time_cuda(torch, lambda: ref.page_move_ref(pool_b, s, d)),
-            library_ms=time_cuda(torch, library),
-            library_device_ms=device_ms(torch, library),
-            bound_ms=bound_ms(2 * m * row_bytes + 2 * 4 * m),
-            classes_a_b_s="/".join(map(str, classes)),
-            shape=f"pool[{rows},{elems}]{dname} plan={m}",
-        )
-        del pool_a, pool_b
+        pool = torch.randn((rows, elems), generator=g, device=device,
+                           dtype=getattr(torch, dname))
+        out[name] = check_page_move(torch, np, pool, src, dst, name, staged=False)
+        del pool
         torch.cuda.empty_cache()
-        emit(f"phase2 page_move {name}", **out[name])
+    return out
+
+
+# phase 9's page_move calls: expert rows (one (layer, expert) matrix of
+# qwen2-moe-a2.7b, 2,048 x 1,408 bf16: 5.5 MiB) in pools of 24 x 60 rows, a
+# quarter of them fast, and an expert migration's plan: 8 paired swaps of a
+# slow and a fast slot (the migration budget), every entry staged
+ET_FAST, ET_PAIRS = 360, 8
+
+
+def expert_swap_plan(np, rng, rows: int):
+    fast = rng.choice(ET_FAST, ET_PAIRS, replace=False)
+    slow = ET_FAST + rng.choice(rows - ET_FAST, ET_PAIRS, replace=False)
+    src = np.stack([slow, fast], 1).reshape(-1).astype(np.int32)
+    dst = np.stack([fast, slow], 1).reshape(-1).astype(np.int32)
+    return src, dst
+
+
+def page_move_experts(torch, np, device, cfg):
+    """``page_move`` at the expert rows with an all-swap plan."""
+    rows, elems = cfg.num_layers * cfg.num_experts, cfg.d_model * cfg.moe_d_ff
+    src, dst = expert_swap_plan(np, np.random.default_rng(SEED + 7), rows)
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 8)
+    pool = torch.randn((rows, elems), generator=g, device=device, dtype=torch.bfloat16)
+    out = check_page_move(torch, np, pool, src, dst, "expert5.5m", staged=True)
+    del pool
+    torch.cuda.empty_cache()
     return out
 
 
@@ -648,14 +731,14 @@ PA_B, PA_NH, PA_NKV, PA_DH, PA_PAGE, PA_NP, PA_SLOTS = 32, 32, 4, 128, 16, 32, 4
 FA_S = (1024, 512)  # the two tenants' prompt lengths
 
 
-def paged_inputs(torch, np, dtype, device):
+def paged_inputs(torch, np, dtype, device, nh=PA_NH, nkv=PA_NKV):
     """A decode batch as the main path builds it: 31 selected full pages
     (a few -1 holes) and the current page holding 1..16 tokens."""
     rng = np.random.default_rng(SEED + 2)
     g = torch.Generator(device=device)
     g.manual_seed(SEED + 2)
-    q = torch.randn((PA_B, PA_NH, PA_DH), generator=g, device=device).to(dtype)
-    shape = (PA_SLOTS, PA_PAGE, PA_NKV, PA_DH)
+    q = torch.randn((PA_B, nh, PA_DH), generator=g, device=device).to(dtype)
+    shape = (PA_SLOTS, PA_PAGE, nkv, PA_DH)
     kp = torch.randn(shape, generator=g, device=device).to(dtype)
     vp = torch.randn(shape, generator=g, device=device).to(dtype)
     tables = np.stack([rng.choice(PA_SLOTS, PA_NP, replace=False) for _ in range(PA_B)])
@@ -666,27 +749,30 @@ def paged_inputs(torch, np, dtype, device):
             torch.as_tensor(lens.astype(np.int32), device=device))
 
 
-def paged_bytes(np, tables, lens, itemsize: int) -> int:
+def paged_bytes(np, tables, lens, itemsize: int, nh: int, nkv: int) -> int:
     """Bytes the call must move: the valid K and V rows of each lane's
     pages, q, the output, the tables and lengths."""
     t, n = tables.cpu().numpy(), lens.cpu().numpy()
     p = np.arange(t.shape[1])[None, :]
     valid = np.clip(n[:, None] - p * PA_PAGE, 0, PA_PAGE) * (t >= 0)
-    kv = 2 * int(valid.sum()) * PA_NKV * PA_DH * itemsize
-    return kv + 2 * PA_B * PA_NH * PA_DH * itemsize + 4 * t.size + 4 * n.size
+    kv = 2 * int(valid.sum()) * nkv * PA_DH * itemsize
+    return kv + 2 * PA_B * nh * PA_DH * itemsize + 4 * t.size + 4 * n.size
 
 
-def attention_checks(torch, np, device):
+def attention_checks(torch, np, device, nh=PA_NH, nkv=PA_NKV,
+                     dtypes=("float32", "bfloat16"), tag=""):
     """``paged_attention`` and ``flash_attention`` against their plain
-    versions in float32 and bfloat16 at the slice's shapes, with times."""
+    versions at a serving phase's heads (yi-6b's by default, in float32 and
+    bfloat16), with times; ``tag`` ends each row's name."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
 
     out = {}
-    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    for dname in dtypes:
+        dtype = getattr(torch, dname)
         tol = ATTN_TOL[dname]
-        q, kp, vp, tables, lens = paged_inputs(torch, np, dtype, device)
+        q, kp, vp, tables, lens = paged_inputs(torch, np, dtype, device, nh, nkv)
         got = ops.paged_attention(q, kp, vp, tables, lens)
         want = ref.paged_attention_ref(q, kp, vp, tables, lens)
         torch.cuda.synchronize()
@@ -697,15 +783,15 @@ def attention_checks(torch, np, device):
         def library():
             # two calls: gather the tables' pages, then masked SDPA
             t = tables.clamp(min=0).long()
-            k = kp[t].reshape(PA_B, -1, PA_NKV, PA_DH).transpose(1, 2)
-            v = vp[t].reshape(PA_B, -1, PA_NKV, PA_DH).transpose(1, 2)
+            k = kp[t].reshape(PA_B, -1, nkv, PA_DH).transpose(1, 2)
+            v = vp[t].reshape(PA_B, -1, nkv, PA_DH).transpose(1, 2)
             pos = torch.arange(PA_NP * PA_PAGE, device=device)
             mask = (pos[None, :] < lens[:, None]) & (tables >= 0).repeat_interleave(PA_PAGE, 1)
             return F.scaled_dot_product_attention(q[:, :, None], k, v,
                                                   attn_mask=mask[:, None, None, :],
                                                   enable_gqa=True)
 
-        out[f"paged_attention {dname}"] = dict(
+        out[f"paged_attention {dname}{tag}"] = dict(
             max_abs_err=err, tol=tol,
             ms=time_cuda(torch, lambda: ops.paged_attention(q, kp, vp, tables, lens)),
             device_ms=device_ms(torch, lambda: ops.paged_attention(q, kp, vp, tables, lens)),
@@ -713,8 +799,9 @@ def attention_checks(torch, np, device):
             plain_ms=time_cuda(torch, lambda: ref.paged_attention_ref(q, kp, vp, tables, lens)),
             library_ms=time_cuda(torch, library),
             library_device_ms=device_ms(torch, library),
-            bound_ms=bound_ms(paged_bytes(np, tables, lens, q.element_size())),
+            bound_ms=bound_ms(paged_bytes(np, tables, lens, q.element_size(), nh, nkv)),
             bound_by="bytes", library="gather+sdpa (two calls)",
+            shape=f"q[{PA_B},{nh},{PA_DH}]{dname}_pool[{PA_SLOTS},{PA_PAGE},{nkv},{PA_DH}]",
         )
         del kp, vp
 
@@ -723,9 +810,9 @@ def attention_checks(torch, np, device):
         for S in FA_S:
             g = torch.Generator(device=device)
             g.manual_seed(SEED + 3)
-            qf = torch.randn((1, PA_NH, S, PA_DH), generator=g, device=device).to(dtype)
-            kf = torch.randn((1, PA_NKV, S, PA_DH), generator=g, device=device).to(dtype)
-            vf = torch.randn((1, PA_NKV, S, PA_DH), generator=g, device=device).to(dtype)
+            qf = torch.randn((1, nh, S, PA_DH), generator=g, device=device).to(dtype)
+            kf = torch.randn((1, nkv, S, PA_DH), generator=g, device=device).to(dtype)
+            vf = torch.randn((1, nkv, S, PA_DH), generator=g, device=device).to(dtype)
             got = ops.flash_attention(qf, kf, vf, causal=True)
             want = ref.flash_attention_ref(qf, kf, vf, causal=True)
             torch.cuda.synchronize()
@@ -733,8 +820,8 @@ def attention_checks(torch, np, device):
             check(bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)),
                   f"flash_attention {dname} S {S} within {tol} of its plain version "
                   f"(max err {err})")
-            flops = 4 * PA_NH * PA_DH * S * (S + 1) // 2  # the causal pairs only
-            nbytes = (2 * PA_NH + 2 * PA_NKV) * S * PA_DH * qf.element_size()
+            flops = 4 * nh * PA_DH * S * (S + 1) // 2  # the causal pairs only
+            nbytes = (2 * nh + 2 * nkv) * S * PA_DH * qf.element_size()
             peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
             by_ops = flops / peak * 1e3
 
@@ -742,7 +829,7 @@ def attention_checks(torch, np, device):
                 return F.scaled_dot_product_attention(qf, kf, vf, is_causal=True,
                                                       enable_gqa=True)
 
-            name = f"flash_attention {dname}" + ("" if S == FA_S[0] else f" S{S}")
+            name = f"flash_attention {dname}{tag}" + ("" if S == FA_S[0] else f" S{S}")
             out[name] = dict(
                 max_abs_err=err, tol=tol,
                 ms=time_cuda(torch, lambda: ops.flash_attention(qf, kf, vf, causal=True)),
@@ -755,6 +842,7 @@ def attention_checks(torch, np, device):
                 bound_ms=max(by_ops, bound_ms(nbytes)),
                 bound_by="operations" if by_ops >= bound_ms(nbytes) else "bytes",
                 library="sdpa(is_causal, enable_gqa)",
+                shape=f"q[1,{nh},{S},{PA_DH}]{dname}_kv[1,{nkv},{S},{PA_DH}]",
             )
         torch.cuda.empty_cache()
     for name, r in out.items():
@@ -768,8 +856,10 @@ def attention_checks(torch, np, device):
 # benchmarks/serving_colocation.py, at yi-6b's full width and depth
 SV_PAGE, SV_FAST, SV_SLOW = 16, 512, 4096
 SV_BATCH, SV_PER_SEQ, SV_QUEST, SV_EPOCH = 32, 96, 32, 8
-SV_WARMUP, SV_STEPS = 24, 256
+SV_WARMUP, SV_STEPS = 24, 128
 SV_TENANTS = (("ls", 0.1, 0.10, 512, 128), ("be", 1.0, 0.15, 1024, 256))
+# phase 7, serve-qwen2moe: the same geometry and tenants, fewer steps
+SV7_WARMUP, SV7_STEPS = 16, 128
 
 
 def serving_stack(torch, cfg, params, device, *, kv_dtype, n_fast, n_slow, batch, per_seq,
@@ -797,6 +887,14 @@ def to_device(tree, device):
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
 
 
 def live_pages(eng):
@@ -847,7 +945,8 @@ def timed(torch, fn, stats, key):
 def time_layers(torch, eng, stats):
     """Time the engine's layers per call: prefill (the model forward), the
     prompt's page writes, the decode step and the MaxMem epoch (the KV
-    migration is timed in ``guard_migrations``)."""
+    migration is timed in ``guard_migrations``). Returns a function that
+    puts the engine module's decode step back."""
     import dataclasses
 
     from repro_torch.serving import engine as engine_mod
@@ -856,8 +955,35 @@ def time_layers(torch, eng, stats):
                                                          "prefill_ms"))
     eng.kv.write_tokens = timed(torch, eng.kv.write_tokens, stats, "write_ms")
     eng.manager.run_epoch = timed(torch, eng.manager.run_epoch, stats, "epoch_ms")
-    engine_mod.paged_decode_step = timed(torch, engine_mod.paged_decode_step, stats,
-                                         "decode_ms")
+    inner = engine_mod.paged_decode_step
+    engine_mod.paged_decode_step = timed(torch, inner, stats, "decode_ms")
+
+    def restore():
+        engine_mod.paged_decode_step = inner
+
+    return restore
+
+
+def count_routes(torch, tokens, record):
+    """Wrap ``moe.route`` so that every routing of exactly ``tokens`` tokens
+    (a decode step's lanes; ``None``: any) hands its ``Routing`` to
+    ``record``. Returns a function that puts it back."""
+    from repro_torch.models import moe
+
+    inner = moe.route
+
+    def route(router, xf, cfg, cap):
+        r = inner(router, xf, cfg, cap)
+        if tokens is None or xf.shape[0] == tokens:
+            record(r)
+        return r
+
+    moe.route = route
+
+    def restore():
+        moe.route = inner
+
+    return restore
 
 
 def freed_slots_clean(torch, np, eng, chunk: int = 256) -> bool:
@@ -874,20 +1000,11 @@ def freed_slots_clean(torch, np, eng, chunk: int = 256) -> bool:
     return True
 
 
-def run_serving(torch, np, device):
-    """serve-yi6b end to end; returns its numbers (raises on a failed check)."""
-    from collections import deque
-
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.models.model import get_model
-    from repro_torch.serving.driver import OpenLoopDriver, TenantSpec
-
-    cfg = get_config("yi-6b")
+def run_serving(torch, np, device, cfg, params, *, warmup: int, steps: int):
+    """A serving phase end to end (serve-yi6b, serve-qwen2moe) on ``params``;
+    returns its numbers (raises on a failed check). An MoE model's decode
+    steps also count their dropped assignments."""
     t0 = time.perf_counter()
-    params = get_model(cfg).init(seed=SEED, device=device)
     eng = serving_stack(torch, cfg, params, device, kv_dtype=torch.bfloat16, n_fast=SV_FAST,
                         n_slow=SV_SLOW, batch=SV_BATCH, per_seq=SV_PER_SEQ, quest=SV_QUEST,
                         epoch=SV_EPOCH, queue=1024, bandwidth=128, budget=128)
@@ -896,7 +1013,32 @@ def run_serving(torch, np, device):
     stats = {"check_s": 0.0, "checked_epochs": 0, "checked_pages": 0}
     layer_ms = {k: [] for k in ("prefill_ms", "write_ms", "decode_ms", "epoch_ms", "migrate_ms")}
     guard_migrations(torch, eng, stats, layer_ms)
-    time_layers(torch, eng, layer_ms)
+    restore = [time_layers(torch, eng, layer_ms)]
+    # per decode-step routing of each MoE layer: each lane's dropped
+    # assignments (on the card) and which lanes hold a request (the rest are
+    # routed too, and take capacity)
+    drops = []
+    if cfg.is_moe:
+        restore.append(count_routes(torch, SV_BATCH, lambda r: drops.append(
+            ((~r.valid).view(SV_BATCH, -1).sum(1), [x is not None for x in eng.lanes]))))
+    try:
+        out = _drive_serving(torch, np, device, cfg, eng, stats, layer_ms, drops, setup_s,
+                             warmup=warmup, steps=steps)
+    finally:
+        for r in restore:
+            r()
+    return out
+
+
+def _drive_serving(torch, np, device, cfg, eng, stats, layer_ms, drops, setup_s, *, warmup,
+                   steps):
+    from collections import deque
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.driver import OpenLoopDriver, TenantSpec
+
     driver = OpenLoopDriver(eng, [TenantSpec(*t) for t in SV_TENANTS], seed=SEED)
     finite = torch.ones((), dtype=torch.bool, device=device)
 
@@ -915,12 +1057,14 @@ def run_serving(torch, np, device):
 
     ops.reset_launch_counts()
     epochs0 = len(eng._epoch_log)
-    drive(SV_WARMUP)
-    tok0 = eng.decode_tokens
+    drive(warmup)
+    tok0, drops0 = eng.decode_tokens, len(drops)
     n0 = {k: len(v) for k, v in layer_ms.items()}
-    step_ms = drive(SV_STEPS)
+    step_ms = drive(steps)
+    tokens = eng.decode_tokens - tok0  # the timed steps' (the profiled ones come later)
     timed_calls = {k: v[n0[k]:] for k, v in layer_ms.items()}
     launches = ops.launch_counts()
+    timed_drops = drops[drops0:]
     timed_s = sum(step_ms) / 1e3
     moved_epochs = sum(1 for e in eng._epoch_log[epochs0:] if e["moved"] > 0)
 
@@ -969,10 +1113,28 @@ def run_serving(torch, np, device):
     dec_top = ";".join(f"{e.key[:40].replace(' ', '_')}:{e.self_device_time_total / 2 / 1e3:.3f}"
                        for e in dec_rows[:8])
     calls = {k: len(v) for k, v in timed_calls.items()}
-    per_step = {k.replace("_ms", "_ms_per_step"): sum(v) / SV_STEPS
+    per_step = {k.replace("_ms", "_ms_per_step"): sum(v) / steps
                 for k, v in timed_calls.items()}
+    if cfg.is_moe:
+        check(len(timed_drops) == calls["decode_ms"] * cfg.num_layers,
+              f"every MoE layer of {calls['decode_ms']} decode steps routed the batch once")
+        lane_drops = torch.stack([d for d, _ in timed_drops]).cpu()  # [calls, B]
+        live = torch.tensor([a for _, a in timed_drops])
+        per = lane_drops.sum(1).view(-1, cfg.num_layers).sum(1)
+        per_live = (lane_drops * live).sum(1).view(-1, cfg.num_layers).sum(1)
+        live_assign = (live.sum(1) * cfg.moe_top_k).view(-1, cfg.num_layers).sum(1)
+        per_step.update(
+            moe_dropped_per_decode_step_mean=float(per.float().mean()),
+            moe_dropped_per_decode_step_max=int(per.max()),
+            moe_decode_steps_with_drops=int((per > 0).sum()),
+            moe_assignments_per_decode_step=SV_BATCH * cfg.moe_top_k * cfg.num_layers,
+            moe_dropped_of_active_lanes_per_decode_step_mean=float(per_live.float().mean()),
+            moe_dropped_of_active_lanes_per_decode_step_max=int(per_live.max()),
+            moe_active_lane_assignments_per_decode_step_mean=float(live_assign.float().mean()),
+        )
     res = dict(
-        setup_s=setup_s, steps=SV_STEPS, decode_tokens_per_s=(eng.decode_tokens - tok0) / timed_s,
+        setup_s=setup_s, steps=steps, decode_tokens_per_s=tokens / timed_s,
+        lanes_per_decode_step=tokens / max(calls["decode_ms"], 1),
         step_ms_p50=step_sorted[len(step_sorted) // 2],
         step_ms_p99=step_sorted[min(len(step_sorted) - 1, int(0.99 * len(step_sorted)))],
         step_ms_mean=sum(step_ms) / len(step_ms),
@@ -1000,10 +1162,13 @@ def run_serving(torch, np, device):
 
 
 # ------------------------------------------------------------------ phase 6
-def serving_gpu_vs_cpu(torch, np):
-    """The serving slice at full width, 2 layers, float32, with the same
-    weights on the card and on the CPU: 3 requests through prefill and 8
-    decode steps. Returns (max relative logit difference, comparisons)."""
+def serving_gpu_vs_cpu(torch, np, arch: str):
+    """The serving slice at ``arch``'s full width, 2 layers, float32, with
+    the same weights on the card and on the CPU: 3 requests through prefill
+    and 8 decode steps. Returns (max relative logit difference,
+    comparisons); for an MoE model the comparisons also hold, per layer,
+    the gate ids that differ and the smallest top-k margin (the gap between
+    the k-th and the next probability on the CPU) among their tokens."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1013,7 +1178,7 @@ def serving_gpu_vs_cpu(torch, np):
     # float32 products in full float32 on the card (no TF32), as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=2, param_dtype="float32",
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, param_dtype="float32",
                               compute_dtype="float32")
     cpu_params = get_model(cfg).init(seed=SEED, device="cpu")
     rng = np.random.default_rng(SEED + 4)
@@ -1030,14 +1195,21 @@ def serving_gpu_vs_cpu(torch, np):
             eng.submit("ls" if i == 0 else "be", p, 9)
         counts, logits, inner = [], [], eng.manager.record_access
         eng.manager.record_access = lambda c: (counts.append(np.array(c)), inner(c))[1]
-        for _ in range(8):
-            eng.step()
-            logits.append(eng.last_logits.cpu())
+        routes = []
+        restore = count_routes(torch, None, lambda r: routes.append(
+            (r.gate_ids.cpu(), r.probs.cpu()))) if cfg.is_moe else (lambda: None)
+        try:
+            for _ in range(8):
+                eng.step()
+                logits.append(eng.last_logits.cpu())
+        finally:
+            restore()
         st = state_to_numpy(eng.manager._state)
         runs[dev] = dict(counts=counts, logits=torch.stack(logits), slot_of=eng.kv.slot_of.copy(),
                          tokens=[r.generated for r in eng.finished + [r for r in eng.lanes if r]],
                          state=st, moved=eng._migrated_pages,
-                         queue=eng.manager.queue_counters())
+                         queue=eng.manager.queue_counters(), routes=routes)
+        del params, eng
     g, c = runs["cuda"], runs["cpu"]
     rel = float((g["logits"] - c["logits"]).abs().max() / c["logits"].abs().max())
     state_equal = all(
@@ -1050,10 +1222,261 @@ def serving_gpu_vs_cpu(torch, np):
         state_equal=state_equal, slot_of_equal=bool(np.array_equal(g["slot_of"], c["slot_of"])),
         queue_equal=g["queue"] == c["queue"], moved=g["moved"],
     )
+    if cfg.is_moe:
+        cmp.update(route_compare(torch, g["routes"], c["routes"], cfg))
     return rel, cmp
 
 
+def route_compare(torch, gpu, cpu, cfg) -> dict:
+    """Gate ids that differ between the card's and the CPU's routings, per
+    layer (the calls come layer by layer, prompt by prompt, step by step),
+    and the smallest top-k margin among the tokens where they do."""
+    L, k = cfg.num_layers, cfg.moe_top_k
+    check(len(gpu) == len(cpu), f"as many routings on the card as on the CPU ({len(gpu)}, "
+          f"{len(cpu)})")
+    differ, margin = [0] * L, float("inf")
+    for i, ((ig, _), (ic, pc)) in enumerate(zip(gpu, cpu)):
+        check(ig.shape == ic.shape, f"routing {i} has the same tokens on both")
+        bad = (ig != ic).any(1)
+        differ[i % L] += int((ig != ic).sum())
+        if bool(bad.any()):
+            top = torch.sort(pc[bad], dim=-1, descending=True).values[:, : k + 1]
+            margin = min(margin, float((top[:, :-1] - top[:, 1:]).min()))
+    return dict(routings=len(gpu), gate_ids_differ_per_layer="/".join(map(str, differ)),
+                min_top_k_margin_where_differ=None if margin == float("inf") else margin)
+
+
+# ------------------------------------------------------------------ phase 7
+def moe_split(torch, cfg, params, device, tokens: int):
+    """One MoE layer's block at ``tokens`` tokens (a decode step's lanes),
+    in pieces: the device time of the routing (gates, ranks, capacity), of
+    the experts' batched products and of the shared experts, and of the
+    whole block, whose rest is the dispatch and the combine (scatter into
+    [Ep, C, d], gather back); and the whole block's host time per call."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer_params
+
+    lp = layer_params(params, 0)["moe"]
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 10)
+    x = torch.randn((tokens, 1, cfg.d_model), generator=g, device=device).to(cfg.cdtype)
+    xf = x.reshape(tokens, -1)
+    cap = moe.capacity(tokens, cfg)
+    xe = torch.randn((moe.padded_experts(cfg), cap, cfg.d_model), generator=g,
+                     device=device).to(cfg.cdtype)
+    sp = lp["shared"]
+
+    def experts():
+        h = F.silu(torch.bmm(xe, lp["w_gate"])) * torch.bmm(xe, lp["w_up"])
+        return torch.bmm(h, lp["w_down"])
+
+    def shared():
+        return (F.silu(xf @ sp["w_gate"]) * (xf @ sp["w_up"])) @ sp["w_down"]
+
+    out = dict(
+        tokens=tokens, capacity=cap,
+        block_device_ms=device_ms(torch, lambda: moe.moe_mlp(lp, x, cfg)),
+        block_host_ms=host_ms(torch, lambda: moe.moe_mlp(lp, x, cfg)),
+        block_ms=time_cuda(torch, lambda: moe.moe_mlp(lp, x, cfg)),
+        route_device_ms=device_ms(torch, lambda: moe.route(lp["router"], xf, cfg, cap)),
+        experts_device_ms=device_ms(torch, experts),
+        experts_ms=time_cuda(torch, experts),
+        experts_bound_ms=bound_ms(sum(lp[w].numel() * lp[w].element_size()
+                                      for w in ("w_gate", "w_up", "w_down"))),
+        shared_device_ms=device_ms(torch, shared),
+    )
+    out["dispatch_combine_device_ms"] = (out["block_device_ms"] - out["route_device_ms"]
+                                         - out["experts_device_ms"] - out["shared_device_ms"])
+    return out
+
+
+# ------------------------------------------------------------------ phase 8
+# coloc-legs: benchmarks/serving_colocation.py's machine, tenants and seed
+# (16 fast + 80 slow 4-token pages, batch 4, 8 pages a sequence, Quest top-2,
+# an epoch every 2 steps, queue 32, bandwidth 8, headroom 6, quotas 8/8,
+# 24 warm-up + 60 steps), its three placements on phase 7's weights
+CL_FAST, CL_SLOW, CL_PAGE, CL_BATCH, CL_PER_SEQ, CL_QUEST, CL_EPOCH = 16, 80, 4, 4, 8, 2, 2
+CL_QUEUE, CL_BW, CL_HEADROOM, CL_SEED, CL_WARMUP, CL_STEPS = 32, 8, 6, 7, 24, 60
+CL_QUOTA = {"ls": CL_FAST // 2, "be": CL_FAST // 2}
+CL_TENANTS = (("ls", 0.1, 0.10, 12, 16), ("be", 1.0, 0.15, 16, 24))
+CL_MODES = ("maxmem", "static", "fixed")
+
+
+def coloc_leg(torch, np, device, cfg, params, mode: str) -> dict:
+    """One placement's leg; raises when a mechanism check fails."""
+    from repro_torch.kvcache.paged import TieredPagedKV
+    from repro_torch.serving.baselines import make_serving_manager
+    from repro_torch.serving.driver import OpenLoopDriver, TenantSpec
+    from repro_torch.serving.engine import ServingEngine
+
+    manager = make_serving_manager(
+        mode, num_pages=CL_FAST + CL_SLOW, fast_capacity=CL_FAST, migration_budget=CL_BW,
+        queue_size=CL_QUEUE, migration_bandwidth=CL_BW, fast_quota=CL_QUOTA,
+        alloc_headroom=CL_HEADROOM, max_tenants=4, device=device)
+    kv = TieredPagedKV(cfg, CL_FAST, CL_SLOW, page_tokens=CL_PAGE, dtype=torch.bfloat16,
+                       device=device)
+    eng = ServingEngine(cfg, params, manager, kv, max_batch=CL_BATCH, pages_per_seq=CL_PER_SEQ,
+                        quest_pages=CL_QUEST, epoch_steps=CL_EPOCH)
+    driver = OpenLoopDriver(eng, [TenantSpec(*t) for t in CL_TENANTS], seed=CL_SEED)
+    most_fast = {name: 0 for name in CL_QUOTA}
+
+    def drive(n):
+        for _ in range(n):
+            driver.run(1)
+            for name, h in eng.tenant_handles.items():
+                most_fast[name] = max(most_fast[name], manager.fast_pages_of(h))
+
+    drive(CL_WARMUP)
+    torch.cuda.synchronize()
+    tok0, t0 = eng.decode_tokens, time.perf_counter()
+    drive(CL_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rep = driver.report(driver.steps_run)
+    moved = rep["_engine"]["migrated_pages"]
+    if mode == "maxmem":
+        check(moved > 0, "the maxmem leg migrated pages")
+    else:
+        check(moved == 0, f"the {mode} leg migrated no page ({moved})")
+    if mode == "fixed":
+        check(all(most_fast[n] <= q for n, q in CL_QUOTA.items()),
+              f"no tenant held more fast pages than its quota: {most_fast} of {CL_QUOTA}")
+    check(sorted(kv.slot_of.tolist()) == list(range(kv.n_slots)), "slot_of is a permutation")
+    check(freed_slots_clean(torch, np, eng), f"the {mode} leg's freed slots are clean")
+    out = dict(migrated_pages=moved, tokens_per_s=(eng.decode_tokens - tok0) / wall,
+               step_ms_mean=wall / CL_STEPS * 1e3, admission_blocked=eng.admission_blocked)
+    for name, h in eng.tenant_handles.items():
+        lat = rep[name]["latency"]
+        out[f"{name}_p50_us"] = lat.get("p50", 0.0) * 1e6
+        out[f"{name}_p99_us"] = lat.get("p99", 0.0) * 1e6
+        out[f"{name}_fmmr"] = eng.manager.fmmr_of(h)
+        out[f"{name}_most_fast_pages"] = most_fast[name]
+        out[f"{name}_completed"] = rep[name]["completed"]
+    return out
+
+
+def coloc_legs(torch, np, device, cfg, params):
+    """The three legs; returns ({mode: numbers}, the claim row as found,
+    kernel launches over the three)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    legs = {mode: coloc_leg(torch, np, device, cfg, params, mode) for mode in CL_MODES}
+    launches = ops.launch_counts()
+    p99 = {m: legs[m]["ls_p99_us"] for m in CL_MODES}
+    claim = dict(maxmem_leq_static=p99["maxmem"] <= p99["static"],
+                 maxmem_leq_fixed=p99["maxmem"] <= p99["fixed"],
+                 ls_p99_us="/".join(f"{m}:{p99[m]}" for m in CL_MODES))
+    return legs, claim, launches
+
+
+# ------------------------------------------------------------------ phase 9
+# expert-tiering: ExpertTierManager at qwen2-moe-a2.7b's full width, 1,440
+# expert pages, a quarter fast, the reference's budget and epoch period; a
+# fixed seeded bf16 batch through every layer each step, as the reference's
+# test_real_router_skew_from_moe_model drives it
+ET_TOKENS, ET_BUDGET, ET_EPOCH, ET_STEPS = 32, 8, 8, 64
+
+
+def expert_tiering(torch, np, device, cfg, params):
+    """The expert-tiering phase; returns its numbers (raises on a failed
+    check: swaps, every page_move call all staged, every expert's rows
+    bit-equal to its weights wherever it moved, layer 0's output unchanged)."""
+    from repro_torch.kernels import ops, page_copy
+    from repro_torch.serving.expert_tiering import ExpertTierManager, moe_layer_from_pools
+
+    L, E = cfg.num_layers, cfg.num_experts
+    t0 = time.perf_counter()
+    tm = ExpertTierManager(cfg, n_fast_slots=ET_FAST, t_miss=0.1, migration_budget=ET_BUDGET,
+                           epoch_steps=ET_EPOCH, device=device)
+    tm.build_pools(params)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 9)
+    x = torch.randn((ET_TOKENS, cfg.d_model), generator=g, device=device).to(torch.bfloat16)
+    routers = params["layers"]["moe"]["router"]
+    calls = []  # (entries, [A, B, S] read on the card, event ms) per page_move call
+    inner = ops.page_move
+
+    def page_move(pool, s, d):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner(pool, s, d)
+        b.record()
+        b.synchronize()
+        calls.append((int(s.numel()), page_copy.page_move_classes(pool).tolist(),
+                      a.elapsed_time(b)))
+        return out
+
+    ops.page_move = page_move
+    layer0, step_ms, moved, shares = [], [], [], []
+    try:
+        ops.reset_launch_counts()
+        for _ in range(ET_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            counts = []
+            for l in range(L):
+                out, c = moe_layer_from_pools(tm.pools, tm.slot_table()[l], routers[l], x, cfg=cfg)
+                counts.append(c)
+                if l == 0:
+                    layer0.append(out)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            counts = torch.stack(counts)
+            shares.append(tm.fast_share_of_traffic(counts))
+            tm.record_routing(counts)
+            moved.append(tm.maybe_epoch())
+        launches = ops.launch_counts()
+    finally:
+        ops.page_move = inner
+
+    migrating = sum(1 for m in moved if m)
+    check(sum(moved) > 0, "expert swaps happened")
+    check(launches["page_move"] == 3 * migrating == len(calls),
+          f"page_move launches {launches['page_move']} = 3 pools x {migrating} migrating epochs")
+    for m, cls, _ in calls:
+        check(cls == [0, 0, m], f"an expert plan of {m} entries is all staged: A/B/S = {cls}")
+    check(all(torch.equal(o, layer0[0]) for o in layer0),
+          "layer 0's output bit-equal at every step, across the migrations")
+    check(sorted(tm.slot_of.tolist()) == list(range(tm.n_slots)), "slot_of is a permutation")
+    w = params["layers"]["moe"]
+    intact = all(
+        torch.equal(getattr(tm.pools, name)[int(tm.slot_of[l * E + e])], w[name][l, e])
+        for l in range(L) for e in range(E) for name in ("w_gate", "w_up", "w_down"))
+    check(intact, "every expert's rows bit-equal to its weights, wherever it moved")
+    row_bytes = cfg.d_model * cfg.moe_d_ff * tm.pools.w_gate.element_size()
+    move_ms = sorted(ms for _, _, ms in calls)
+    entries = sorted(m for m, _, _ in calls)
+    step_sorted = sorted(step_ms)
+    return dict(
+        setup_s=setup_s, steps=ET_STEPS, epochs=ET_STEPS // ET_EPOCH, migrating_epochs=migrating,
+        moved_rows=sum(moved), page_move_calls=len(calls),
+        entries_per_call_median=entries[len(entries) // 2],
+        page_move_ms_per_call_median=move_ms[len(move_ms) // 2],
+        page_move_ms_per_call_max=move_ms[-1],
+        page_move_bound_ms_per_call_median=bound_ms(2 * entries[len(entries) // 2] * row_bytes),
+        row_bytes=row_bytes, unpaired_promotes=tm.unpaired_promotes,
+        unpaired_demotes=tm.unpaired_demotes, fast_share_first=shares[0],
+        fast_share_last=shares[-1], fmmr=tm.fmmr(),
+        layer_ms_median=step_sorted[len(step_sorted) // 2] / L,
+        step_ms_median=step_sorted[len(step_sorted) // 2],
+        pools_gib=3 * tm.n_slots * row_bytes / 2**30, launches_page_move=launches["page_move"],
+    )
+
+
 # --------------------------------------------------------------------- main
+def shape_entry(k: dict, path: str, launches) -> dict:
+    """One measured shape of a kernel for the ``kernels`` line."""
+    keys = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "classes_a_b_s")
+    return {"path": path, "launches": launches, **{x: k[x] for x in keys if x in k}}
+
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1085,9 +1508,18 @@ def main() -> int:
         print(f"phase1 ptxas {full}: {lines[0]}", flush=True)
     device = torch.device("cuda")
 
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import get_model
+
+    moe_cfg = get_config("qwen2-moe-a2.7b")
     kern = kernel_checks(torch, np, device)
-    page_move_widths(torch, np, device)
+    page_move_widths(torch, np, device, "yi-6b")
+    moves = page_move_widths(torch, np, device, "qwen2-moe-a2.7b")
+    moves["expert5.5m"] = page_move_experts(torch, np, device, moe_cfg)
     attn = attention_checks(torch, np, device)
+    attn.update(attention_checks(torch, np, device, nh=moe_cfg.num_heads,
+                                 nkv=moe_cfg.num_kv_heads, dtypes=("bfloat16",),
+                                 tag=" qwen2moe"))
 
     torch.cuda.reset_peak_memory_stats()
     res = run_slice(torch, np, device)
@@ -1102,22 +1534,69 @@ def main() -> int:
     check(ints_equal, "GPU and CPU runs bit-equal on integer state and page bytes")
     check(ulp <= 2, "FMMR within 2 ulp between GPU and CPU")
 
-    torch.cuda.empty_cache()
+    free_device(torch)
     torch.cuda.reset_peak_memory_stats()
-    sv, tenants, sv_launches, sv_queue = run_serving(torch, np, device)
-    emit("phase5 serve-yi6b", **sv)
+    cfg = get_config("yi-6b")
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(seed=SEED, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sv, tenants, sv_launches, sv_queue = run_serving(torch, np, device, cfg, params,
+                                                     warmup=SV_WARMUP, steps=SV_STEPS)
+    emit("phase5 serve-yi6b", init_s=init_s, **sv)
     for name, t in tenants.items():
         emit(f"phase5 tenant {name}", **t)
     emit("phase5 queue", **sv_queue)
     emit("phase5 launches", **sv_launches)
-    torch.cuda.empty_cache()
+    del params
+    free_device(torch)
 
-    rel, cmp = serving_gpu_vs_cpu(torch, np)
-    emit("phase6", layers=2, logits_max_rel_diff=rel, **cmp)
-    check(rel <= 1e-3, f"GPU and CPU logits within 1e-3 relative ({rel})")
-    check(cmp["tokens_equal"] and cmp["counts_equal"], "greedy tokens and access counts equal")
-    check(cmp["state_equal"] and cmp["slot_of_equal"] and cmp["queue_equal"],
-          "manager state and slot map equal between GPU and CPU")
+    for arch, tag in (("yi-6b", ""), ("qwen2-moe-a2.7b", " qwen2-moe")):
+        rel, cmp = serving_gpu_vs_cpu(torch, np, arch)
+        emit(f"phase6{tag}", layers=2, logits_max_rel_diff=rel, **cmp)
+        check(rel <= 1e-3, f"{arch}: GPU and CPU logits within 1e-3 relative ({rel})")
+        check(cmp["tokens_equal"] and cmp["counts_equal"],
+              f"{arch}: greedy tokens and access counts equal")
+        check(cmp["state_equal"] and cmp["slot_of_equal"] and cmp["queue_equal"],
+              f"{arch}: manager state and slot map equal between GPU and CPU")
+    free_device(torch)
+
+    # phase 7, serve-qwen2moe: qwen2-moe-a2.7b at full width and depth
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = get_model(moe_cfg).init(seed=SEED, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gib = sum(t.numel() * t.element_size() for t in leaves(params)) / 2**30
+    sv7, tenants7, sv7_launches, sv7_queue = run_serving(torch, np, device, moe_cfg, params,
+                                                         warmup=SV7_WARMUP, steps=SV7_STEPS)
+    emit("phase7 serve-qwen2moe", init_s=init_s, weights_gib=weights_gib, **sv7)
+    for name, t in tenants7.items():
+        emit(f"phase7 tenant {name}", **t)
+    emit("phase7 queue", **sv7_queue)
+    emit("phase7 launches", **sv7_launches)
+    emit("phase7 moe-split", layers=moe_cfg.num_layers,
+         **moe_split(torch, moe_cfg, params, device, SV_BATCH))
+    free_device(torch)
+
+    # phase 8, coloc-legs: the colocation benchmark's three placements
+    torch.cuda.reset_peak_memory_stats()
+    legs, claim, cl_launches = coloc_legs(torch, np, device, moe_cfg, params)
+    for mode, leg in legs.items():
+        emit(f"phase8 coloc-legs {mode}", **leg)
+    emit("phase8 claim (as found, not gated)", **claim)
+    emit("phase8 launches", **cl_launches,
+         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    check(all(cl_launches[k] > 0 for k in ("paged_attention", "flash_attention", "page_move")),
+          f"the legs launched paged_attention, flash_attention and page_move: {cl_launches}")
+    free_device(torch)
+
+    # phase 9, expert-tiering: the expert weights tiered by routing skew
+    torch.cuda.reset_peak_memory_stats()
+    et = expert_tiering(torch, np, device, moe_cfg, params)
+    emit("phase9 expert-tiering", **et, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del params
+    free_device(torch)
 
     sources = {
         "page_move": ("src/repro_torch/kernels/csrc/page_copy.cu",
@@ -1152,6 +1631,27 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "device_ms": k["device_ms"], "library_device_ms": k["library_device_ms"],
         })
+    # the MoE slice's shapes (phases 7-9), each with its launches on its path;
+    # the colocation legs' (phase 8, 4-token pages) are counted, not timed
+    half7 = sv7_launches["page_move"] // 2  # K and V, then the two summaries
+    by_name = {r["name"]: r for r in rows}
+    by_name["page_move"]["shapes"] = [
+        shape_entry(moves["kv64k"], "serve-qwen2moe K/V", half7),
+        shape_entry(moves["summary8k"], "serve-qwen2moe summaries", half7),
+        shape_entry(moves["expert5.5m"], "expert-tiering", et["launches_page_move"]),
+        {"path": "coloc-legs", "launches": cl_launches["page_move"]},
+    ]
+    by_name["paged_attention"]["shapes"] = [
+        shape_entry(attn["paged_attention bfloat16 qwen2moe"], "serve-qwen2moe",
+                    sv7_launches["paged_attention"]),
+        {"path": "coloc-legs", "launches": cl_launches["paged_attention"]},
+    ]
+    by_name["flash_attention"]["shapes"] = [
+        shape_entry(attn["flash_attention bfloat16 qwen2moe"], "serve-qwen2moe S1024 and S512",
+                    sv7_launches["flash_attention"]),
+        shape_entry(attn["flash_attention bfloat16 qwen2moe S512"], "serve-qwen2moe S512", None),
+        {"path": "coloc-legs", "launches": cl_launches["flash_attention"]},
+    ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Architecture config registry of the port: ``get_config("yi-6b")``.
 
-The port serves dense decoder-only models so far. The other architectures
-of the reference wait for the ROADMAP items that port their model code.
+The port serves dense and MoE decoder-only models so far. The other
+architectures of the reference wait for the ROADMAP items that port their
+model code.
 """
 from __future__ import annotations
 
@@ -9,7 +10,11 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig
 
-_ARCH_MODULES = {"yi-6b": "repro_torch.configs.yi_6b"}
+_ARCH_MODULES = {
+    "yi-6b": "repro_torch.configs.yi_6b",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+}
 
 # architectures of the reference that the port does not serve yet, with the
 # ROADMAP item that brings each
@@ -21,8 +26,6 @@ _LATER = {
     "zamba2-1.2b": "ROADMAP Queue 1 item 10 (LM stack: hybrid SSM)",
     "mamba2-130m": "ROADMAP Queue 1 item 10 (LM stack: SSM)",
     "whisper-tiny": "ROADMAP Queue 1 item 10 (LM stack: encoder-decoder)",
-    "moonshot-v1-16b-a3b": "ROADMAP Queue 1 item 6 (serving: models/moe.py)",
-    "qwen2-moe-a2.7b": "ROADMAP Queue 1 item 6 (serving: models/moe.py)",
 }
 
 ARCH_NAMES = tuple(_ARCH_MODULES)

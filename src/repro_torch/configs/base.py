@@ -1,5 +1,5 @@
 """Model architecture config (the port's copy of the fields the serving
-slice reads).
+slice reads, the MoE fields included).
 
 One ``ModelConfig`` per published architecture, built from its exact
 dimensions; ``smoke()`` derives the reduced config the CPU tests use, with
@@ -20,7 +20,7 @@ class ModelConfig:
     """Architecture description of a decoder-only transformer."""
 
     name: str
-    family: str  # dense (the only family the port serves so far)
+    family: str  # dense | moe (the families the port serves so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -35,7 +35,16 @@ class ModelConfig:
     norm_eps: float = 1e-5
     rope_theta: float = 10_000.0
     use_qk_norm: bool = False
+    # -- MoE
     num_experts: int = 0
+    num_shared_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0  # per-expert FFN width
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    # pad the expert weight arrays to this count (0 = none); routing stays
+    # over the real num_experts, the pad experts are never routed to
+    expert_pad_to: int = 0
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     sliding_window: int = 0  # 0 = full attention
@@ -68,6 +77,10 @@ class ModelConfig:
             d_head=16,
             d_ff=128,
             vocab_size=256,
+            moe_d_ff=32 if self.is_moe else 0,
+            num_experts=8 if self.is_moe else 0,
+            moe_top_k=min(self.moe_top_k, 2) if self.is_moe else 0,
+            num_shared_experts=min(self.num_shared_experts, 1),
             sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
             param_dtype="float32",
             compute_dtype="float32",

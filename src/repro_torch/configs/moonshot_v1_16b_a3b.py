@@ -1,0 +1,21 @@
+"""moonshot-v1-16b-a3b (Moonlight): MoE 64 experts top-6
+[hf:moonshotai/Moonlight-16B-A3B]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="moonshot-v1-16b-a3b",
+    family="moe",
+    num_layers=48,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=16,
+    d_ff=1408,  # kept for record; experts use moe_d_ff
+    vocab_size=163840,
+    activation="swiglu",
+    num_experts=64,
+    num_shared_experts=2,
+    moe_top_k=6,
+    moe_d_ff=1408,
+    param_dtype="bfloat16",
+    compute_dtype="bfloat16",
+)

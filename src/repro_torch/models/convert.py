@@ -5,8 +5,11 @@ The two packages share one layout (dense weights [in, out], every layer's
 weights stacked on a leading L axis), so the conversion is a copy with the
 config's dtype: ``embed``, ``layers`` (``attn_norm``, ``attn`` with ``w_q``,
 ``w_k``, ``w_v``, ``w_o`` and the optional biases and qk-norms,
-``mlp_norm``, ``mlp``), ``final_norm`` and ``lm_head`` unless the
-embeddings are tied.
+``mlp_norm``, ``mlp`` or, for an MoE config, ``moe``), ``final_norm`` and
+``lm_head`` unless the embeddings are tied. The MoE subtree is ``router``
+[L, d, E] (kept in float32, as the reference keeps it), ``w_gate``,
+``w_up`` and ``w_down`` [L, Ep, ...] with the pad experts, and the optional
+``shared`` block.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from repro_torch.models.moe import padded_experts
 
 
 def tensor_from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -31,20 +36,33 @@ def tensor_from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 def params_from_numpy(cfg, params_np: Dict[str, Any], device) -> Dict[str, Any]:
     """The port's parameter tree from the reference's (numpy leaves)."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP Queue 1 item 6)")
     expected = {"embed", "layers", "final_norm"} | (set() if cfg.tie_embeddings else {"lm_head"})
     if set(params_np) != expected:
         raise KeyError(f"param tree has {sorted(params_np)}, expected {sorted(expected)}")
 
-    def conv(tree):
+    def conv(tree, name=""):
         if isinstance(tree, dict):
-            return {k: conv(v) for k, v in tree.items()}
-        return tensor_from_numpy(tree, cfg.pdtype, device)
+            return {k: conv(v, k) for k, v in tree.items()}
+        return tensor_from_numpy(tree, torch.float32 if name == "router" else cfg.pdtype, device)
 
     out = conv(params_np)
     L = cfg.num_layers
     for name, leaf in out["layers"]["attn"].items():
         if leaf.shape[0] != L:
             raise ValueError(f"layers.attn.{name} has no leading layer axis of {L}")
+    if cfg.is_moe:
+        moe = out["layers"].get("moe")
+        if moe is None:
+            raise KeyError("an MoE config's layers need a moe subtree")
+        lead = {"router": (L, cfg.d_model, cfg.num_experts)}
+        lead.update({w: (L, padded_experts(cfg)) for w in ("w_gate", "w_up", "w_down")})
+        for name, shape in lead.items():
+            if tuple(moe[name].shape[: len(shape)]) != shape:
+                raise ValueError(f"layers.moe.{name} has shape {tuple(moe[name].shape)}, "
+                                 f"expected leading axes {shape}")
+        if ("shared" in moe) != bool(cfg.num_shared_experts):
+            raise KeyError("layers.moe.shared must be present iff the config has shared experts")
+        for name, leaf in moe.get("shared", {}).items():
+            if leaf.shape[0] != L:
+                raise ValueError(f"layers.moe.shared.{name} has no leading layer axis of {L}")
     return out

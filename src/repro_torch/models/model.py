@@ -4,8 +4,8 @@
     params = api.init(seed)                 # on "cuda" unless device= says otherwise
     logits, kv = api.prefill(params, tokens, max_len)
 
-Only the dense family is ported; the others raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+The dense and MoE families are ported; the others raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -36,13 +36,12 @@ def _init(cfg: ModelConfig, seed: int = 0, device=None):
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family == "dense" and not cfg.is_moe:
+    if cfg.family in ("dense", "moe"):
         return ModelAPI(
             cfg=cfg,
             init=lambda seed=0, device=None: _init(cfg, seed, device),
             prefill=lambda p, t, ml: transformer.prefill(p, t, cfg, ml),
         )
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: MoE waits for ROADMAP Queue 1 item 6, "
-        "the other families for item 10"
+        f"family {cfg.family!r} is not ported yet: it waits for ROADMAP Queue 1 item 10"
     )

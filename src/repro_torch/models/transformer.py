@@ -1,4 +1,4 @@
-"""Decoder-only transformer, the prefill half (dense family).
+"""Decoder-only transformer, the prefill half (dense and MoE families).
 
 Layers are stacked along a leading axis, as in the reference, and run in a
 Python loop over that axis (the reference's ``lax.scan``). Inference needs
@@ -11,6 +11,7 @@ from typing import Any, Dict, NamedTuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 
 Params = Dict[str, Any]
 
@@ -28,18 +29,23 @@ class PrefillKV(NamedTuple):
 def init_params(gen: torch.Generator, cfg, device) -> Params:
     """Random weights with the reference's distributions (normal / sqrt(in)
     dense weights, 0.02-scaled embedding, unit norms), drawn from ``gen`` on
-    ``device``; every layer's weights are stacked on a leading L axis."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP Queue 1 item 6)")
+    ``device``; every layer's weights are stacked on a leading L axis. An MoE
+    config's layers hold ``moe`` (router, experts, shared experts) in place
+    of ``mlp``."""
     d, lead = cfg.d_model, (cfg.num_layers,)
+    embed = L.embed_init(gen, cfg.vocab_size, d, cfg.pdtype, device)  # drawn first
+    layers: Params = {
+        "attn_norm": torch.ones((*lead, d), dtype=cfg.pdtype, device=device),
+        "attn": L.init_attention(gen, cfg, device, lead),
+        "mlp_norm": torch.ones((*lead, d), dtype=cfg.pdtype, device=device),
+    }
+    if cfg.is_moe:
+        layers["moe"] = moe.init_moe(gen, cfg, device, lead)
+    else:
+        layers["mlp"] = L.init_mlp(gen, cfg, device, lead)
     p: Params = {
-        "embed": L.embed_init(gen, cfg.vocab_size, d, cfg.pdtype, device),
-        "layers": {
-            "attn_norm": torch.ones((*lead, d), dtype=cfg.pdtype, device=device),
-            "attn": L.init_attention(gen, cfg, device, lead),
-            "mlp_norm": torch.ones((*lead, d), dtype=cfg.pdtype, device=device),
-            "mlp": L.init_mlp(gen, cfg, device, lead),
-        },
+        "embed": embed,
+        "layers": layers,
         "final_norm": torch.ones((d,), dtype=cfg.pdtype, device=device),
     }
     if not cfg.tie_embeddings:
@@ -65,7 +71,15 @@ def block_full(lp: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
     o = L.causal_attention(q, k, v, sliding_window=cfg.sliding_window)
     x = x + o.reshape(*x.shape[:2], -1) @ lp["attn"]["w_o"]
     h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + L.mlp(lp["mlp"], h, cfg), (k, v)
+    return x + mlp_block(lp, h, cfg), (k, v)
+
+
+def mlp_block(lp: Params, h: torch.Tensor, cfg) -> torch.Tensor:
+    """The layer's feed-forward half: the MoE block (its aux loss dropped:
+    inference) or the dense MLP."""
+    if cfg.is_moe:
+        return moe.moe_mlp(lp["moe"], h, cfg)[0]
+    return L.mlp(lp["mlp"], h, cfg)
 
 
 # --------------------------------------------------------------------------- forward

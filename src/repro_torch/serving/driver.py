@@ -38,8 +38,13 @@ class OpenLoopDriver:
         self.engine = engine
         self.tenants = list(tenants)
         self.rng = np.random.default_rng(seed)
+        # a fixed-partition manager's quotas are named by tenant: resolve them
+        # onto the handles as the tenants register
+        named = getattr(engine.manager, "named_quota", {})
         for t in self.tenants:
             engine.add_tenant(t.name, t.t_miss)
+            if t.name in named:
+                engine.manager.fast_quota[int(engine.tenant_handles[t.name])] = named[t.name]
         self.submitted: Dict[str, int] = {t.name: 0 for t in self.tenants}
         self.steps_run = 0
 

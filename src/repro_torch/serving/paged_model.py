@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import layer_params, lm_head_weight
+from repro_torch.models.transformer import layer_params, lm_head_weight, mlp_block
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -136,8 +136,10 @@ def paged_decode_step(
         o = ops.paged_attention(q[:, 0].to(kp.dtype).contiguous(), kp, vp, table, lens)
         x = x + o.reshape(B, 1, -1).to(x.dtype) @ lp["attn"]["w_o"]
 
+        # an MoE layer routes all B lanes, the inactive ones included, as the
+        # reference does: capacity is per step and couples the lanes
         h2 = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + L.mlp(lp["mlp"], h2, cfg)
+        x = x + mlp_block(lp, h2, cfg)
 
         # ---- access accounting (selected logical pages) --------------------
         sel_logical = logical_tables.gather(1, sel)

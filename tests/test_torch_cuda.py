@@ -201,6 +201,8 @@ def _paged_inputs(rng, B, nh, nkv, dh, P, page, n_p, dtype, device):
     (3, 8, 1, 128, 32, 16, 6),
     (4, 16, 2, 128, 64, 32, 8),
     (32, 32, 4, 128, 4608, 16, 32),  # the serving slice's shape (yi-6b)
+    (32, 16, 16, 128, 4608, 16, 32),  # qwen2-moe-a2.7b's: g = 1
+    (4, 16, 16, 128, 96, 4, 2),  # the colocation legs' 4-token pages, Quest top-2
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_paged_attention_matches_plain(cuda, B, nh, nkv, dh, P, page, n_p, dtype):
@@ -223,6 +225,8 @@ def test_cuda_paged_attention_matches_plain(cuda, B, nh, nkv, dh, P, page, n_p, 
     (1, 4, 2, 256, 256, 64, 64, True),  # sliding window
     (2, 4, 2, 40, 72, 16, 0, False),  # not causal, the smoke head width
     (1, 32, 4, 1024, 1024, 128, 0, True),  # the serving slice's prefill (yi-6b)
+    (1, 16, 16, 1024, 1024, 128, 0, True),  # qwen2-moe-a2.7b's prefills: g = 1
+    (1, 16, 16, 512, 512, 128, 0, True),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_matches_plain(cuda, B, nh, nkv, Sq, Skv, dh, window, causal,
@@ -283,7 +287,7 @@ def test_cuda_flash_attention_bf16_masks(cuda, B, nh, nkv, Sq, Skv, window, caus
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_p", [1, 5, 32, 33])
-@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("page", [4, 8, 16, 32])
 @pytest.mark.parametrize("g", [1, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_paged_attention_splits(cuda, n_p, page, g, dtype):
@@ -314,3 +318,72 @@ def test_cuda_paged_attention_empty(cuda, dtype, case):
     got = ops.paged_attention(q, kp, vp, tables, lens)
     torch.cuda.synchronize()
     assert torch.equal(got, torch.zeros_like(got))
+
+
+# ------------------------------------------ the MoE slice: expert swaps, moe_mlp
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_elems", [2048 * 1408, 512 * 1024])  # 5.5 MiB and 1 MiB bf16
+def test_cuda_page_move_expert_swaps(cuda, row_elems):
+    """An expert migration's plan: 8 paired swaps (src = [a, b], dst = [b, a]).
+    Every entry reads a row the plan writes, so all are staged (class S);
+    the result is the gather, twice back to back, and the marks end zero."""
+    rows = 40
+    g = torch.Generator(device=cuda)
+    g.manual_seed(row_elems)
+    pool = torch.randn((rows, row_elems), generator=g, device=cuda).to(torch.bfloat16)
+    want = pool.clone()
+    rng = np.random.default_rng(row_elems)
+    for _ in range(2):
+        fast, slow = rng.choice(10, 8, replace=False), 10 + rng.choice(rows - 10, 8, replace=False)
+        src = np.stack([slow, fast], 1).reshape(-1)
+        dst = np.stack([fast, slow], 1).reshape(-1)
+        s, d = (torch.as_tensor(x.astype(np.int32), device=cuda) for x in (src, dst))
+        want = ref.page_move_ref(want, s, d)
+        ops.page_move(pool, s, d)
+        assert page_copy.page_move_classes(pool).tolist() == [0, 0, 16]
+        assert bool((ref.page_move_classes(s, d, rows) == S).all())
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(pool), _bits(want))
+    assert not page_copy._WORKSPACES[pool.device].marks.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,tokens", [("smoke", 40), ("full", 32)])
+def test_cuda_moe_mlp_matches_cpu(cuda, width, tokens):
+    """``moe_mlp`` on the card and on the CPU on the same float32 inputs and
+    weights (full float32 products, no TF32): equal gate ids, ranks and
+    drops, outputs within 1e-4. ``full`` is qwen2-moe-a2.7b's width with one
+    layer's weights, at the decode batch of 32 (capacity 8)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("qwen2-moe-a2.7b")
+    cfg = cfg.smoke() if width == "smoke" else dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32")
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    params = moe.init_moe(gen, cfg, "cpu")
+    rng = np.random.default_rng(tokens)
+    base = rng.normal(size=(1, 1, cfg.d_model))
+    x = (base + rng.normal(size=(1, tokens, cfg.d_model))).astype(np.float32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gpu = {k: (v.to(cuda) if not isinstance(v, dict) else {kk: vv.to(cuda)
+                                                               for kk, vv in v.items()})
+               for k, v in params.items()}
+        xc, xg = torch.as_tensor(x), torch.as_tensor(x).to(cuda)
+        cap = moe.capacity(tokens, cfg)
+        rc = moe.route(params["router"], xc.reshape(tokens, -1), cfg, cap)
+        rg = moe.route(gpu["router"], xg.reshape(tokens, -1), cfg, cap)
+        oc, ac = moe.moe_mlp(params, xc, cfg)
+        og, ag = moe.moe_mlp(gpu, xg, cfg)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert torch.equal(rg.gate_ids.cpu(), rc.gate_ids)
+    assert torch.equal(rg.rank.cpu(), rc.rank) and torch.equal(rg.valid.cpu(), rc.valid)
+    torch.testing.assert_close(og.cpu(), oc, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ag.cpu(), ac, atol=1e-6, rtol=1e-5)
