@@ -55,7 +55,23 @@ Phases, one line of numbers each:
      through every layer's ``moe_layer_from_pools`` for 64 steps (8
      epochs): every ``page_move`` call all staged (class S), every expert's
      rows bit-equal to its weights wherever it moved, layer 0's output
-     unchanged.
+     unchanged;
+ 10. ``scenario-1M``: the scenario engine's ``scale_colocation(1,048,576,
+     16, 40)`` (12 tenants of 49,152 pages, 4 more from epoch 10 to 30)
+     through ``ColocationSim`` with ``policy_chunk`` 4 on phase 3's manager;
+     each arriving tenant's pages written through ``page_copy``, the
+     conservation invariants after every event and at the end, every live
+     page's bytes, queue conservation and the sentinel checked; the epoch's
+     wall time split into the manager's calls (tick / sync / execute), its
+     control plane, the page writes and checks, and the rest (the
+     simulator's host cost model); one more chunk profiled;
+ 11. ``scenario-gpu-vs-cpu``: the Fig. 4 timeline of
+     ``examples/colocation_demo.py`` (3,584 pages, queue 64, bandwidth 8,
+     300 epochs) with exact sampling and a 4 KiB page pool, ``policy_chunk``
+     1, on the card and on the CPU: epoch records (floats exact), phases,
+     every leaf of the final state and the frame table equal; then the same
+     timeline under HeMem, AutoNUMA and 2LM with the invariants on, each
+     policy's steady-phase LS p99 and throughput printed as found.
 Phase 2 also holds ``paged_attention`` and ``flash_attention`` against their
 plain versions, in float32 and bfloat16, at phase 5's shapes (flash at both
 tenants' prompt lengths, 1,024 and 512) and in bfloat16 at phase 7's (16
@@ -68,6 +84,7 @@ device and the ``src/repro_torch`` package beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -550,15 +567,20 @@ def page_move_experts(torch, np, device, cfg):
 
 
 # ------------------------------------------------------------------ phase 3
-def build_manager(torch, np, device, n_pages, *, exact, elems, queue, bandwidth, budget):
+def new_manager(device, n_pages, *, exact, elems, queue, bandwidth, budget):
     from repro_torch.core.manager import CentralManager
 
-    m = CentralManager(
+    return CentralManager(
         num_pages=n_pages, fast_capacity=n_pages // 4, migration_budget=budget,
         max_tenants=TENANTS, sample_period=100, queue_size=queue,
         migration_bandwidth=bandwidth, data_plane_elems=elems, sentinel=True,
         exact_sampling=exact, seed=SEED, device=device,
     )
+
+
+def build_manager(torch, np, device, n_pages, *, exact, elems, queue, bandwidth, budget):
+    m = new_manager(device, n_pages, exact=exact, elems=elems, queue=queue,
+                    bandwidth=bandwidth, budget=budget)
     pages_of = []
     for n, t in zip(tenant_sizes(n_pages, len(T_MISS)), T_MISS):
         h = m.register(t)
@@ -655,15 +677,25 @@ def run_slice(torch, np, device):
 def profile_epochs(torch, m, rates, gen, n: int = 2):
     """Device busy time per epoch over ``n`` more epochs under the profiler
     (after the slice's checks and launch counts), against their wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
     counts = [epoch_counts(torch, rates, gen) for _ in range(n)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def epochs():
         for c in counts:
             m.record_access(c)
             m.run_epoch()
+
+    return device_busy(torch, epochs, n)
+
+
+def device_busy(torch, fn, n: int):
+    """Device busy time per epoch of ``fn`` (which runs ``n`` epochs) under
+    the profiler, against its wall time, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / n * 1e3
     rows = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
@@ -1468,6 +1500,283 @@ def expert_tiering(torch, np, device, cfg, params):
     )
 
 
+# ----------------------------------------------------------- phases 10 and 11
+SC_TENANTS, SC_EPOCHS, SC_CHUNK = 16, 40, 4  # scale_colocation(PAGES, 16, 40)
+# examples/colocation_demo.py (paper Fig. 4) with its --bandwidth 8 queue
+F4_PAGES, F4_FAST, F4_BUDGET, F4_QUEUE, F4_BANDWIDTH, F4_EPOCHS = 3584, 512, 32, 64, 8, 300
+
+
+def check_invariants(np, sim, event=None) -> None:
+    """The conservation invariants of tests/test_scenarios.py:87-110: tiers
+    exactly partition the owned pages, no page of an unregistered tenant,
+    fast occupancy within capacity, queue conservation."""
+    from repro_torch.core.types import TIER_FAST, TIER_NONE, TIER_SLOW
+
+    backend = sim.backend
+    tier = np.asarray(backend.tiers())
+    owner = np.asarray(backend.owners())
+    ctx = f"after {event}" if event is not None else "after epoch"
+    check(set(np.unique(tier).tolist()) <= {TIER_NONE, TIER_SLOW, TIER_FAST}, f"tier domain {ctx}")
+    owned = owner >= 0
+    check(bool((tier[owned] != TIER_NONE).all()), f"owned page unplaced {ctx}")
+    check(bool((tier[~owned] == TIER_NONE).all()), f"unowned page placed {ctx}")
+    registered = {int(h) for h in sim.handles.values()}
+    holders = set(np.unique(owner[owned]).tolist())
+    check(holders <= registered, f"orphan owners {holders - registered} {ctx}")
+    cap = int(backend.params.fast_capacity) if hasattr(backend, "params") \
+        else backend.fast_capacity
+    check(int((tier == TIER_FAST).sum()) <= cap, f"fast occupancy {ctx}")
+    if hasattr(backend, "queue_counters"):
+        c = backend.queue_counters()
+        check(c["enqueued"] == c["drained"] + c["cancelled"] + c["dropped"] + c["depth"],
+              f"queue conservation {ctx}: {c}")
+
+
+def scenario_hook(torch, np, acc):
+    """``on_event`` for ``run_scenario``: an arriving tenant's pages get
+    their content through ``pool.write_pages`` (``page_copy``), then the
+    invariants are checked; its host time goes to ``acc["hook"]``."""
+    from repro_torch.core.scenario import Arrive
+
+    def hook(sim, ev):
+        t0 = time.perf_counter()
+        acc["_busy"] = True
+        pool = getattr(sim.backend, "pool", None)
+        if isinstance(ev, Arrive) and pool is not None:
+            ids = sim.tenants[ev.spec.name].page_ids
+            for lo in range(0, len(ids), 1 << 17):
+                chunk = ids[lo : lo + (1 << 17)]
+                pool.write_pages(chunk, page_pattern(
+                    torch, torch.as_tensor(chunk, device=pool.pool.device), pool.pool.shape[1]))
+        check_invariants(np, sim, ev)
+        acc["hook"] = acc.get("hook", 0.0) + time.perf_counter() - t0
+        acc["_busy"] = False
+
+    return hook
+
+
+def time_methods(obj, names, acc, key: str) -> None:
+    """Wrap ``obj``'s methods ``names`` so their host time adds up in
+    ``acc[key]``; a call made inside another timed call (or the hook) is
+    counted once, by the outer one."""
+    for name in names:
+        fn = getattr(obj, name)
+
+        def timed_fn(*a, _fn=fn, **kw):
+            if acc.get("_busy"):
+                return _fn(*a, **kw)
+            acc["_busy"] = True
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+                acc["_busy"] = False
+
+        setattr(obj, name, timed_fn)
+
+
+def record_sentinels(m, out: list) -> None:
+    """Keep the sentinel word of every epoch the simulator runs (tensors,
+    read once at the end)."""
+    run_epoch, run_epochs = m.run_epoch, m.run_epochs
+
+    def one():
+        res = run_epoch()
+        out.append(res.stats.sentinel.reshape(1))
+        return res
+
+    def many(k, counts=None, collect_plans=False):
+        res = run_epochs(k, counts, collect_plans)
+        out.append(res.stats.sentinel.reshape(-1))
+        return res
+
+    m.run_epoch, m.run_epochs = one, many
+
+
+def live_ids(sim):
+    return [t.page_ids for t in sim.tenants.values()]
+
+
+def scenario_1m(torch, np, device):
+    """Phase 10: ``scale_colocation(1,048,576, 16, 40)`` through the port's
+    ``ColocationSim`` (``policy_chunk`` 4, so the chunked ``run_epochs`` path)
+    on phase 3's manager; returns the numbers, raises on a failed check."""
+    from repro_torch.core.scenario import scale_colocation
+    from repro_torch.core.simulator import OPTANE, ColocationSim
+    from repro_torch.kernels import ops
+
+    m = new_manager(device, PAGES, exact=False, elems=ELEMS, queue=QUEUE, bandwidth=BANDWIDTH,
+                    budget=BUDGET)
+    check(m.device.type == "cuda" and m.pool.pool.is_cuda, f"phase 10 runs on the card: {m.device}")
+    sc = scale_colocation(PAGES, SC_TENANTS, SC_EPOCHS)
+    sim = ColocationSim(m, OPTANE, seed=1, policy_chunk=SC_CHUNK)
+    acc, sentinels = {}, []
+    record_sentinels(m, sentinels)
+    # the manager's epochs and telemetry reads, its control plane, the rest
+    time_methods(m, ("run_epoch", "run_epochs", "tiers", "owners"), acc, "manager")
+    time_methods(m, ("register", "allocate", "unregister", "record_access"), acc, "control")
+    hook = scenario_hook(torch, np, acc)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sim.run_scenario(sc, on_event=hook)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    parts = {k: acc.get(k, 0.0) for k in ("manager", "control", "hook")}
+    check(len(res.history) == SC_EPOCHS, f"{len(res.history)} records of {SC_EPOCHS}")
+    check(launches["page_move"] > 0 and launches["page_copy"] > 0, f"launches {launches}")
+    ph = dict(m.phase_seconds)
+    busy = device_busy(torch, lambda: sim.run_chunk(SC_CHUNK), SC_CHUNK)  # one more chunk
+
+    check_invariants(np, sim)
+    check(readback_ok(torch, m, live_ids(sim)), "every live page reads back its bytes")
+    m.pool.check(m.tiers())
+    words = torch.cat(sentinels).tolist()
+    check(all(w == 0 for w in words), f"sentinel words all 0: {words}")
+    fmmr = [v for r in res.history for v in (*r.fmmr_true.values(), *r.fmmr_measured.values())]
+    check(bool(np.isfinite(fmmr).all()), "FMMR finite in every record")
+    last = res.history[-1]
+    ls = [nm for nm in last.fmmr_true if int(nm[1:]) % 2 == 1]  # t_miss 0.3 (scenario.py:522)
+    n = SC_EPOCHS
+    return dict(
+        epochs=n, tenants_peak=SC_TENANTS, wall_s=wall_s, ms_per_epoch=wall_s / n * 1e3,
+        manager_ms=parts["manager"] / n * 1e3, tick_ms=ph["tick"] / n * 1e3,
+        sync_ms=ph["sync"] / n * 1e3, execute_ms=ph["execute"] / n * 1e3,
+        control_ms=parts["control"] / n * 1e3, writes_and_checks_ms=parts["hook"] / n * 1e3,
+        simulator_ms=(wall_s - sum(parts.values())) / n * 1e3,
+        migrated_pages=sum(r.migrated_pages for r in res.history),
+        moved_pages=m.pool.moved_pages,
+        ls_fmmr_true_mean=float(np.mean([last.fmmr_true[nm] for nm in ls])),
+        ls_fmmr_true_max=float(np.max([last.fmmr_true[nm] for nm in ls])),
+        ls_fmmr_measured_mean=float(np.mean([last.fmmr_measured[nm] for nm in ls])),
+        ls_target=0.3, agg_throughput=res.steady_state.agg_throughput,
+        phases=len(res.phases), **busy,
+    ), m.queue_counters(), launches
+
+
+def fig4_scenario():
+    """The timeline of examples/colocation_demo.py:37-49 (paper Fig. 4)."""
+    from repro_torch.core.scenario import Arrive, ResizeWorkingSet, Retarget, Scenario
+    from repro_torch.core.simulator import WorkloadSpec
+
+    events = [Arrive(0, WorkloadSpec("p1", 128, t_miss=1.0, threads=2))]
+    for j, i in enumerate([2, 3, 4, 5]):
+        events.append(Arrive(10 * (j + 1), WorkloadSpec(
+            f"p{i}", 128, t_miss=0.1, threads=2, sets=((0.5, 0.9),))))
+    events += [
+        Arrive(110, WorkloadSpec("p6", 128, t_miss=0.1, threads=2, sets=((0.5, 0.9),))),
+        ResizeWorkingSet(170, "p5", 0, 0.75),  # hot set +50%
+        Retarget(230, "p1", 0.1),  # dynamic QoS change
+    ]
+    return Scenario(name="fig4_demo", n_epochs=F4_EPOCHS, events=tuple(events),
+                    description="paper Fig. 4 timeline")
+
+
+def fig4_run(torch, np, backend):
+    """One run of the Fig. 4 timeline on ``backend`` (``policy_chunk`` 1,
+    so every epoch is a ``run_epoch``), the invariants after every event."""
+    from repro_torch.core.simulator import OPTANE, ColocationSim
+
+    sim = ColocationSim(backend, OPTANE, seed=2, policy_chunk=1)
+    res = sim.run_scenario(fig4_scenario(), on_event=scenario_hook(torch, np, {}))
+    check_invariants(np, sim)
+    check(len(res.history) == F4_EPOCHS, f"{len(res.history)} records of {F4_EPOCHS}")
+    return sim, res
+
+
+def text_of(x):
+    """``repr`` of dataclasses as dicts: every float exact, NaN and -0.0 told
+    apart."""
+    return [repr(dataclasses.asdict(r)) for r in x]
+
+
+def state_leaves(np, st, prefix=""):
+    """(name, array) of every leaf of ``state_to_numpy``'s state."""
+    for name, v in st._asdict().items():
+        if v is None:
+            continue
+        if hasattr(v, "_asdict"):
+            yield from state_leaves(np, v, f"{prefix}{name}.")
+        else:
+            yield prefix + name, np.asarray(v)
+
+
+def steady_ls(res) -> dict:
+    """The latency-sensitive tenants' (p2-p6) mean p99 and the aggregate
+    throughput over the steady phase."""
+    ph = res.steady_state
+    ls = [nm for nm in ph.p99 if nm != "p1"]
+    return dict(ls_p99_us=float(sum(ph.p99[nm] for nm in ls) / len(ls) * 1e6),
+                agg_throughput=ph.agg_throughput)
+
+
+def scenario_gpu_vs_cpu(torch, np):
+    """Phase 11: the Fig. 4 timeline with exact sampling and a 1,024-f32
+    page pool, on the card and (asked for) on the CPU: histories, phases,
+    final state and page bytes must be equal. Then the three baselines on
+    the same timeline, their steady-phase numbers as found."""
+    from repro_torch.core.baselines import AutoNUMALike, HeMemStatic, TwoLM
+    from repro_torch.core.manager import CentralManager
+    from repro_torch.core.types import state_to_numpy
+    from repro_torch.kernels import ops
+
+    runs = {}
+    launches = None
+    for dev in ("cuda", "cpu"):
+        m = CentralManager(
+            num_pages=F4_PAGES, fast_capacity=F4_FAST, migration_budget=F4_BUDGET,
+            max_tenants=8, sample_period=100, queue_size=F4_QUEUE,
+            migration_bandwidth=F4_BANDWIDTH, exact_sampling=True, data_plane_elems=ELEMS,
+            device=dev,
+        )
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sim, res = fig4_run(torch, np, m)
+        wall_s = time.perf_counter() - t0
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+        check(readback_ok(torch, m, live_ids(sim)), f"{dev}: every live page reads back its bytes")
+        m.pool.check(m.tiers())
+        runs[dev] = dict(m=m, res=res, wall_s=wall_s, state=state_to_numpy(m._state),
+                         frame=np.asarray(m.pool.frame).copy())
+    g, c = runs["cuda"], runs["cpu"]
+    hist_equal = text_of(g["res"].history) == text_of(c["res"].history)
+    phases_equal = text_of(g["res"].phases) == text_of(c["res"].phases)
+    gl, cl = dict(state_leaves(np, g["state"])), dict(state_leaves(np, c["state"]))
+    state_equal = gl.keys() == cl.keys() and all(
+        gl[k].dtype == cl[k].dtype and gl[k].tobytes() == cl[k].tobytes() for k in gl)
+    owned = np.flatnonzero(g["m"].owners() >= 0)
+    frames_equal = np.array_equal(g["frame"][owned], c["frame"][owned])
+    out = dict(
+        epochs=F4_EPOCHS, gpu_wall_s=g["wall_s"], cpu_wall_s=c["wall_s"],
+        histories_equal=hist_equal, phases_equal=phases_equal, state_equal=state_equal,
+        frames_equal=frames_equal, queue=g["m"].queue_counters(),
+        migrated_pages=sum(r.migrated_pages for r in g["res"].history),
+    )
+    check(hist_equal, "GPU and CPU epoch histories equal, floats exact")
+    check(phases_equal, "GPU and CPU PhaseStats equal")
+    check(state_equal, "GPU and CPU final state equal (state_to_numpy, every leaf)")
+    check(frames_equal, "GPU and CPU frame tables equal")
+    check(g["m"].queue_counters() == c["m"].queue_counters(), "queue counters equal")
+    policies = {"maxmem": steady_ls(g["res"])}
+    P, F, B = F4_PAGES, F4_FAST, F4_BUDGET
+    baselines = {  # tests/test_scenarios.py:61-72 at this geometry
+        "hemem": HeMemStatic(P, F, partitions={i: F // 4 for i in range(8)}, hot_threshold=6,
+                             migration_budget=B),
+        "autonuma": AutoNUMALike(P, F),
+        "twolm": TwoLM(P, F),
+    }
+    for name, b in baselines.items():
+        _, res = fig4_run(torch, np, b)
+        policies[name] = steady_ls(res)
+    return out, policies, launches
+
+
 # --------------------------------------------------------------------- main
 def shape_entry(k: dict, path: str, launches) -> dict:
     """One measured shape of a kernel for the ``kernels`` line."""
@@ -1598,6 +1907,23 @@ def main() -> int:
     del params
     free_device(torch)
 
+    # phase 10, scenario-1M: the paper's scenario engine on the card's manager
+    torch.cuda.reset_peak_memory_stats()
+    sc10, sc10_queue, sc10_launches = scenario_1m(torch, np, device)
+    emit("phase10 scenario-1M", **sc10, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    emit("phase10 queue", **sc10_queue)
+    emit("phase10 launches", **sc10_launches)
+    free_device(torch)
+
+    # phase 11, scenario-gpu-vs-cpu: the Fig. 4 timeline on the card and the CPU
+    sc11, policies, sc11_launches = scenario_gpu_vs_cpu(torch, np)
+    emit("phase11 scenario-gpu-vs-cpu", **{k: v for k, v in sc11.items() if k != "queue"})
+    emit("phase11 queue", **sc11["queue"])
+    emit("phase11 launches", **sc11_launches)
+    for name, row in policies.items():
+        emit(f"phase11 steady phase {name} (as found, not gated)", **row)
+    free_device(torch)
+
     sources = {
         "page_move": ("src/repro_torch/kernels/csrc/page_copy.cu",
                       "src/repro/kernels/page_copy.py:34"),
@@ -1640,6 +1966,12 @@ def main() -> int:
         shape_entry(moves["summary8k"], "serve-qwen2moe summaries", half7),
         shape_entry(moves["expert5.5m"], "expert-tiering", et["launches_page_move"]),
         {"path": "coloc-legs", "launches": cl_launches["page_move"]},
+        {"path": "scenario-1M", "launches": sc10_launches["page_move"]},
+        {"path": "scenario-gpu-vs-cpu", "launches": sc11_launches["page_move"]},
+    ]
+    by_name["page_copy"]["shapes"] = [
+        {"path": "scenario-1M", "launches": sc10_launches["page_copy"]},
+        {"path": "scenario-gpu-vs-cpu", "launches": sc11_launches["page_copy"]},
     ]
     by_name["paged_attention"]["shapes"] = [
         shape_entry(attn["paged_attention bfloat16 qwen2moe"], "serve-qwen2moe",

@@ -36,6 +36,17 @@ class FixedPartitionManager(CentralManager):
         self.fast_quota: Dict[int, int] = {}
         self.named_quota: Dict[str, int] = dict(named_quota or {})
 
+    @property
+    def _named_quota(self) -> Dict[str, int]:
+        """The reference's name for ``named_quota``: its
+        ``make_serving_manager`` sets ``_named_quota`` after construction, so
+        code written that way reaches the same quotas here."""
+        return self.named_quota
+
+    @_named_quota.setter
+    def _named_quota(self, value: Dict[str, int]) -> None:
+        self.named_quota = dict(value or {})
+
     def register_with_quota(self, t_miss: float, fast_quota: int) -> TenantHandle:
         h = self.register(t_miss)
         self.fast_quota[int(h)] = int(fast_quota)

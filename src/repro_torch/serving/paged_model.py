@@ -13,7 +13,12 @@ Step 4 is where the port differs in form: the reference gathers the
 selected pages and runs a masked softmax in jnp, the port hands the paged
 attention kernel a block table built from the selection (see
 ``selection_table``), which has exactly the reference's token mask. Only the
-order of the softmax's sums changes.
+order of the softmax's sums changes. An inactive lane masks every key; the
+kernel returns 0 for such a row, the reference a uniform softmax over the
+rows it gathers. In an MoE model that output decides which experts the
+idle lanes take capacity from, so the port gives those lanes
+``idle_attention``; a dense model never reads it (idle lanes' logits are
+zeroed) and skips it.
 """
 from __future__ import annotations
 
@@ -72,6 +77,22 @@ def selection_table(sel, slot_tables, valid_page, cur_slot, cur_off, active, pag
     return table.to(torch.int32).contiguous(), lens.to(torch.int32).contiguous()
 
 
+def idle_attention(vp, slots, g: int):
+    """The reference's attention output of lanes that mask every key:
+    ``slots`` [n, k_sel] are the selected pages' slots of their tables
+    clamped to slot 0; their V rows are gathered, and every score is the
+    finite ``NEG_INF``, so the softmax is uniform. Weights of 1/N (N =
+    selected pages x page rows) in float32, cast to the pool's dtype and
+    summed in float32, as the reference's product does; the mean of each KV
+    head is broadcast over its group. Returns [n, nkv * g, dh] float32."""
+    n, k_sel = slots.shape
+    _, page, nkv, dh = vp.shape
+    rows = vp[slots].reshape(n, k_sel * page, nkv, dh)
+    w = (torch.tensor(1.0) / (k_sel * page)).to(vp.dtype).float()
+    mean = (rows.float() * w).sum(dim=1)  # [n, nkv, dh]
+    return mean[:, :, None, :].expand(n, nkv, g, dh).reshape(n, nkv * g, dh)
+
+
 @torch.no_grad()
 def paged_decode_step(
     params,
@@ -106,9 +127,12 @@ def paged_decode_step(
     )
     k_sel = min(quest_pages, n_p)
     # inactive lanes must not write: their clamped slot would be row 0. The
-    # active lanes' indices are found once (one host sync); indexing with
-    # them, unlike with the mask, does not wait for the device.
+    # active (and, for MoE, inactive) lanes' indices are found once (one
+    # host sync each); indexing with them, unlike with the mask, does not
+    # wait for the device.
     lanes = torch.nonzero(active).squeeze(1)
+    idle = torch.nonzero(~active).squeeze(1) if cfg.is_moe else lanes[:0]
+    g = cfg.num_heads // cfg.num_kv_heads
     w_slot, w_off = cur_slot[lanes], cur_off[lanes]
     cos, sin = L.rope_cos_sin(positions[:, None], cfg.d_head, cfg.rope_theta)
     P = int(num_logical_pages)
@@ -134,6 +158,11 @@ def paged_decode_step(
         table, lens = selection_table(sel, slot_tables, valid_page, cur_slot, cur_off,
                                       active, page)
         o = ops.paged_attention(q[:, 0].to(kp.dtype).contiguous(), kp, vp, table, lens)
+        if idle.numel():
+            if l == 0:  # an idle lane's selection is the same in every layer:
+                # all its scores are NEG_INF but its current page's
+                idle_slots = slot_tables[idle].clamp(min=0).gather(1, sel[idle])
+            o[idle] = idle_attention(vp, idle_slots, g).to(o.dtype)
         x = x + o.reshape(B, 1, -1).to(x.dtype) @ lp["attn"]["w_o"]
 
         # an MoE layer routes all B lanes, the inactive ones included, as the

@@ -106,12 +106,13 @@ def models():
     return jcfg, tcfg, jparams, params_from_numpy(tcfg, jax.device_get(jparams), "cpu")
 
 
-def _leg(mode, cfg, params, port: bool):
-    """One leg as ``serving_colocation._engine`` builds it."""
+def _leg(mode, cfg, params, port: bool, manager=None):
+    """One leg as ``serving_colocation._engine`` builds it (on the port,
+    with ``manager`` in place of ``make_serving_manager``'s if given)."""
     ekw = dict(max_batch=bench.MAX_BATCH, pages_per_seq=bench.PAGES_PER_SEQ, quest_pages=2,
                epoch_steps=bench.EPOCH_STEPS)
     if port:
-        m = make_serving_manager(mode, device="cpu", **MACHINE)
+        m = manager or make_serving_manager(mode, device="cpu", **MACHINE)
         kv = TieredPagedKV(cfg, bench.FAST_PAGES, bench.SLOW_PAGES,
                            page_tokens=bench.PAGE_TOKENS, device="cpu")
         eng = ServingEngine(cfg, params, m, kv, **ekw)
@@ -143,3 +144,23 @@ def test_colocation_leg_matches_reference(models, mode):
     moved = trep["_engine"]["migrated_pages"]
     assert (moved > 0) if mode == "maxmem" else (moved == 0)
     assert trep["ls"]["latency"] and trep["be"]["latency"]
+
+
+def test_named_quota_set_after_construction_gives_the_same_fixed_leg(models):
+    """The reference's ``make_serving_manager`` builds the fixed manager and
+    then sets ``_named_quota``; done that way on the port, the driver
+    resolves the same quotas and the leg is the same."""
+    _, tcfg, _, tparams = models
+    kw = {k: v for k, v in MACHINE.items()
+          if k not in ("fast_quota", "alloc_headroom", "migration_bandwidth")}
+    m = FixedPartitionManager(migration_bandwidth=0, sample_period=1, exact_sampling=True,
+                              device="cpu", **kw)
+    m._named_quota = dict(MACHINE["fast_quota"])
+    assert m.named_quota == MACHINE["fast_quota"] and m._named_quota is m.named_quota
+    late, late_rep = _leg("fixed", tcfg, tparams, port=True, manager=m)
+    ctor, ctor_rep = _leg("fixed", tcfg, tparams, port=True)
+    assert late.manager.fast_quota == ctor.manager.fast_quota != {}
+    assert late_rep == ctor_rep
+    assert late._epoch_log == ctor._epoch_log
+    assert np.array_equal(late.manager.tiers(), ctor.manager.tiers())
+    assert np.array_equal(late.manager.owners(), ctor.manager.owners())
