@@ -71,7 +71,26 @@ Phases, one line of numbers each:
      1, on the card and on the CPU: epoch records (floats exact), phases,
      every leaf of the final state and the frame table equal; then the same
      timeline under HeMem, AutoNUMA and 2LM with the invariants on, each
-     policy's steady-phase LS p99 and throughput printed as found.
+     policy's steady-phase LS p99 and throughput printed as found;
+ 12. ``sweep-64k``: the fleet sweep behind ``BENCH_fleet.json``
+     (``benchmarks/dynamic_workload.py:355-410``: 16 machines of 65,536
+     pages, a quarter-boundary churn timeline, 4 seeds x 4 budgets, 96
+     epochs, ``policy_chunk`` 24, sampled, pipelined) through ``run_sweep``
+     on one ``FleetManager`` on the card: wall time, machine-epochs/s, a
+     fleet epoch split into the batched tick's host time, the deviates'
+     draw, stacking and uploads, the telemetry copy and the 16 simulators'
+     host cost model (the parts overlap across the dispatch thread), the
+     upload counters, peak memory, one profiled chunk; then the same 16
+     points one machine at a time (``ColocationSim(policy_chunk=24)``),
+     every record and every final state leaf equal to the fleet's;
+ 13. ``fleet-gpu-vs-cpu``: the golden fleet trace's three machines on the
+     card against ``tests/golden/fleet_trace.json``; a four-point sweep
+     with exact counts (4 KiB pages, 40 us epochs) on the card and on the
+     CPU, histories and phases equal; the machines axis of
+     ``benchmarks/scale_bench.py`` (K = 1, 4, 16, 64 at 65,536 pages): ms
+     per machine-epoch and live bytes per machine.
+Phases 12-13 launch none of the five kernels (fleet machines have no page
+pool) and run with ``vmap``'s batching-rule fallback warning as an error.
 Phase 2 also holds ``paged_attention`` and ``flash_attention`` against their
 plain versions, in float32 and bfloat16, at phase 5's shapes (flash at both
 tenants' prompt lengths, 1,024 and 512) and in bfloat16 at phase 7's (16
@@ -91,6 +110,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 bandwidth
@@ -1777,6 +1797,275 @@ def scenario_gpu_vs_cpu(torch, np):
     return out, policies, launches
 
 
+# ----------------------------------------------------------- phases 12 and 13
+# benchmarks/dynamic_workload.py:400-410 (_sweep_config, full): the fleet
+# sweep behind BENCH_fleet.json
+FL_PAGES, FL_EPOCHS, FL_MACHINES, FL_TENANTS = 65_536, 96, 16, 16
+FL_FAST = FL_PAGES // 8
+FL_BUDGET = max(FL_FAST // 8, 8)
+FL_CHUNK = FL_EPOCHS // 4
+# tests/golden_regen.py:111-118,170: the golden fleet trace's setup
+GF_P, GF_FAST, GF_MAX_T, GF_EPOCHS, GF_COUNTS_SEED = 64, 16, 4, 8, 99
+GF_TENANTS = ((24, 1.0), (20, 0.1), (12, 0.5))  # (n_pages, t_miss)
+GF_MACHINES = ((5, 16), (6, 8), (7, 12))  # (seed, migration_budget)
+# benchmarks/scale_bench.py:60-61,152-181: the machines axis
+MA_AXIS, MA_PAGES, MA_TENANTS, MA_EPOCHS, MA_REPS = (1, 4, 16, 64), 65_536, 16, 4, 2
+BATCHING_RULE = ".*batching rule.*"
+
+
+def sweep_scenario(n_pages: int, n_epochs: int):
+    """benchmarks/dynamic_workload.py:355-385: 8 latency-sensitive tenants
+    (t_miss 0.3) and 6 best-effort ones at epoch 0, ``gups`` arriving at a
+    quarter, ``ls0``'s hot set resized at half, ``gups`` leaving at three
+    quarters."""
+    from repro_torch.core.scenario import Arrive, Depart, ResizeWorkingSet, Scenario
+    from repro_torch.core.simulator import WorkloadSpec
+
+    n_ls, n_be = 8, 6
+    share = n_pages // (n_ls + n_be + 2)
+    a, b, c = n_epochs // 4, n_epochs // 2, (3 * n_epochs) // 4
+    events = [Arrive(0, WorkloadSpec(f"ls{i}", n_pages=share, t_miss=0.3, threads=4,
+                                     sets=((0.2, 0.85),))) for i in range(n_ls)]
+    events += [Arrive(0, WorkloadSpec(f"be{i}", n_pages=share, t_miss=1.0, threads=8,
+                                      sets=((0.3, 0.6),))) for i in range(n_be)]
+    events += [Arrive(a, WorkloadSpec("gups", n_pages=share, t_miss=1.0, threads=8)),
+               ResizeWorkingSet(b, "ls0", 0, 0.3), Depart(c, "gups")]
+    return Scenario(name=f"sweep_colocation_{n_pages // 1024}k", n_epochs=n_epochs,
+                    events=tuple(events))
+
+
+def sweep_points(n_machines: int, base_budget: int) -> tuple:
+    """benchmarks/dynamic_workload.py:387-398: seed x migration budget."""
+    from repro_torch.core.scenario import SweepPoint
+
+    budgets = (None, 2 * base_budget, base_budget // 2, base_budget // 4)
+    return tuple(
+        SweepPoint(name=f"seed{i // len(budgets)}_bw{budgets[i % len(budgets)] or 'dflt'}",
+                   seed=i // len(budgets), migration_budget=budgets[i % len(budgets)])
+        for i in range(n_machines)
+    )
+
+
+def sweep_64k(torch, np):
+    """Phase 12: the fleet sweep at BENCH_fleet.json's size on the card, its
+    fleet epoch split, one profiled chunk; then the same 16 points serially
+    (one manager and ``ColocationSim(policy_chunk=24)`` each), every record
+    and final state bit-equal to the fleet's."""
+    from repro_torch.core.manager import CentralManager
+    from repro_torch.core.scenario import ScenarioSweep, run_sweep
+    from repro_torch.core.simulator import OPTANE, ColocationSim
+    from repro_torch.core.types import state_to_numpy
+    from repro_torch.kernels import ops
+
+    sc = sweep_scenario(FL_PAGES, FL_EPOCHS)
+    points = sweep_points(FL_MACHINES, FL_BUDGET)
+    seen = {}
+
+    def on_fleet(f):
+        """Keep the fleet and the counts of its last dispatch."""
+        seen["fleet"] = f
+        dispatch = f.run_epochs_async
+
+        def recorded(k, counts=None, **kw):
+            seen["counts"] = counts
+            return dispatch(k, counts=counts, **kw)
+
+        f.run_epochs_async = recorded
+
+    acc: dict = {}
+    saved = {n: getattr(ColocationSim, n) for n in ("_arrays", "_chunk_prepare", "_chunk_record")}
+    time_methods(ColocationSim, tuple(saved), acc, "simulators")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        res = run_sweep(
+            ScenarioSweep(scenario=sc, points=points), num_pages=FL_PAGES, fast_capacity=FL_FAST,
+            migration_budget=FL_BUDGET, max_tenants=FL_TENANTS, sample_period=100,
+            policy_chunk=FL_CHUNK, on_fleet=on_fleet)
+        torch.cuda.synchronize()
+        fleet_s = time.perf_counter() - t0
+    finally:
+        for n, fn in saved.items():
+            setattr(ColocationSim, n, fn)
+    launches = ops.launch_counts()
+    fleet = seen["fleet"]
+    check(fleet.device.type == "cuda", f"phase 12 runs on the card: {fleet.device}")
+    check(all(len(r.history) == FL_EPOCHS for r in res.results.values()), "96 records a machine")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = FL_EPOCHS
+    ph = dict(fleet.phase_seconds)
+    sim_s = acc.get("simulators", 0.0)
+    out = dict(
+        machines=FL_MACHINES, pages=FL_PAGES, epochs=n, wall_s=fleet_s,
+        machine_epochs_per_s=FL_MACHINES * n / fleet_s, fleet_epoch_ms=fleet_s / n * 1e3,
+        tick_host_ms=ph["tick"] / n * 1e3, draw_ms=ph["draw"] / n * 1e3,
+        stack_upload_ms=ph["assemble"] / n * 1e3, transfer_ms=ph["transfer"] / n * 1e3,
+        simulators_ms=sim_s / n * 1e3, pipeline=res.pipeline, peak_gib=peak,
+        **{f"upload_{k}": v for k, v in fleet.upload_stats.items()},
+    )
+    fleet_states = [state_to_numpy(m._state) for m in fleet.machines]
+    # the last chunk's counts once more, under the profiler
+    busy = device_busy(torch, lambda: fleet.run_epochs(FL_CHUNK, counts=seen["counts"],
+                                                       trim_stats=True), FL_CHUNK)
+    out.update(busy)
+
+    # the same 16 points, one machine at a time on the card
+    t0 = time.perf_counter()
+    equal_hist = equal_state = 0
+    for i, p in enumerate(points):
+        mgr = CentralManager(
+            num_pages=FL_PAGES, fast_capacity=FL_FAST,
+            migration_budget=FL_BUDGET if p.migration_budget is None else p.migration_budget,
+            max_tenants=FL_TENANTS, sample_period=100, seed=p.seed)
+        sim = ColocationSim(mgr, OPTANE, seed=p.seed, policy_chunk=FL_CHUNK)
+        want = sim.run_scenario(sc)
+        equal_hist += text_of(want.history) == text_of(res.results[p.name].history)
+        fs = dict(state_leaves(np, fleet_states[i]))
+        ws = dict(state_leaves(np, state_to_numpy(mgr._state)))
+        equal_state += fs.keys() == ws.keys() and all(
+            fs[k].tobytes() == ws[k].tobytes() for k in fs)
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    out.update(serial_s=serial_s, serial_over_fleet=serial_s / fleet_s,
+               histories_equal=equal_hist, states_equal=equal_state)
+    check(equal_hist == FL_MACHINES, f"every machine's records equal serially: {equal_hist}")
+    check(equal_state == FL_MACHINES, f"every machine's final state equal serially: {equal_state}")
+    check(not any(launches.values()), f"the fleet path launches no kernel: {launches}")
+    return out, launches
+
+
+def golden_record(np, result, tier) -> dict:
+    """tests/golden_regen.py:139-152: one epoch of the golden fleet trace."""
+    s = result.stats
+    return {
+        "fmmr_now": np.asarray(s.fmmr_now, np.float32).astype(float).tolist(),
+        "fmmr_ewma": np.asarray(s.fmmr_ewma, np.float32).astype(float).tolist(),
+        "fast_pages": np.asarray(s.fast_pages, np.int32).tolist(),
+        "slow_pages": np.asarray(s.slow_pages, np.int32).tolist(),
+        "promoted": np.asarray(s.promoted, np.int32).tolist(),
+        "demoted": np.asarray(s.demoted, np.int32).tolist(),
+        "cooled": np.asarray(s.cooled, bool).tolist(),
+        "promote_ids": np.asarray(result.plan.promote, np.int32).tolist(),
+        "demote_ids": np.asarray(result.plan.demote, np.int32).tolist(),
+        "tier": np.asarray(tier, np.int8).tolist(),
+    }
+
+
+def golden_fleet(np) -> bool:
+    """The golden fleet trace's three machines (exact sampling) as a fleet
+    on the card, against ``tests/golden/fleet_trace.json``."""
+    from repro_torch.core.fleet import FleetManager
+    from repro_torch.core.manager import CentralManager
+
+    machines = []
+    for seed, budget in GF_MACHINES:
+        m = CentralManager(num_pages=GF_P, fast_capacity=GF_FAST, migration_budget=budget,
+                           max_tenants=GF_MAX_T, sample_period=100, exact_sampling=True, seed=seed)
+        for n_pages, t_miss in GF_TENANTS:
+            m.allocate(m.register(t_miss), n_pages)
+        machines.append(m)
+    fleet = FleetManager(machines)
+    counts = np.random.default_rng(GF_COUNTS_SEED).integers(
+        0, 50, size=(GF_EPOCHS, GF_P)).astype(np.int64)
+    res = fleet.run_epochs(GF_EPOCHS, counts=np.broadcast_to(counts, (3,) + counts.shape),
+                           collect_plans=True)
+    fresh = []
+    for i, (seed, budget) in enumerate(GF_MACHINES):
+        tier = fleet.machines[i].tiers()
+        epochs = [golden_record(np, r, tier) for r in res.machine(i).unstack()]
+        for e in range(GF_EPOCHS - 1):
+            epochs[e].pop("tier")
+        fresh.append({"seed": seed, "budget": budget, "epochs": epochs})
+    with open(os.path.join(ROOT, "tests", "golden", "fleet_trace.json")) as f:
+        committed = json.load(f)["machines"]
+    return json.loads(json.dumps(fresh)) == committed
+
+
+def parity_sweep(dev: str):
+    """tests/test_torch_sweep.py's timeline: four points (seed x budget x
+    bandwidth) in queue mode, 4 KiB pages, 40 us epochs, ``sample_period``
+    1 (exact counts), ``policy_chunk`` 4, on ``dev``."""
+    from repro_torch.core.scenario import (Arrive, Depart, ResizeWorkingSet, Scenario,
+                                           ScenarioSweep, SweepPoint, run_sweep)
+    from repro_torch.core.simulator import OPTANE, WorkloadSpec
+
+    sc = Scenario(name="sweep_parity", n_epochs=16, events=(
+        Arrive(0, WorkloadSpec("kvs", n_pages=380, t_miss=0.2, threads=4, sets=((0.2, 0.9),))),
+        Arrive(0, WorkloadSpec("gap", n_pages=260, t_miss=0.5, threads=8, sets=((0.2, 0.7),))),
+        Arrive(4, WorkloadSpec("gups", n_pages=160, t_miss=1.0, threads=8)),
+        ResizeWorkingSet(8, "kvs", 0, 0.3),
+        Depart(12, "gups"),
+    ))
+    points = tuple(SweepPoint(name=f"m{i}", seed=i // 2, migration_budget=(32, 16)[i % 2],
+                              migration_bandwidth=8 + 4 * i, migration_latency=i % 2)
+                   for i in range(4))
+    t0 = time.perf_counter()
+    res = run_sweep(ScenarioSweep(scenario=sc, points=points), num_pages=1024, fast_capacity=256,
+                    migration_budget=32, max_tenants=8, queue_size=64, policy_chunk=4,
+                    sample_period=1, epoch_seconds=4e-5,
+                    machine=dataclasses.replace(OPTANE, page_bytes=4096), device=dev)
+    return res, time.perf_counter() - t0
+
+
+def machines_point(torch, np, K: int) -> dict:
+    """benchmarks/scale_bench.py:152-181 at K machines: the managers of
+    benchmarks/microbench.py:285-297 (fast P/4, budget P/32, 16 tenants of
+    P/16 pages at t_miss 0.5, seed = machine), Poisson(200) counts, 4
+    epochs with trimmed telemetry and one stacked placement read a rep."""
+    from repro_torch.core.fleet import FleetManager
+    from repro_torch.core.manager import CentralManager
+
+    P, T = MA_PAGES, MA_TENANTS
+    mgrs = []
+    for seed in range(K):
+        m = CentralManager(num_pages=P, fast_capacity=P // 4, migration_budget=max(P // 32, 8),
+                           max_tenants=T, sample_period=100, seed=seed)
+        for _ in range(T):
+            m.allocate(m.register(t_miss=0.5), P // T)
+        mgrs.append(m)
+    counts = np.random.default_rng(0).poisson(200, (K, P)).astype(np.int64)
+    fleet = FleetManager(mgrs, devices=1)
+    live = fleet.live_bytes()
+    best = float("inf")
+    for rep in range(MA_REPS + 1):
+        before = dict(fleet.phase_seconds)
+        t0 = time.perf_counter()
+        fleet.run_epochs(MA_EPOCHS, counts=counts, trim_stats=True)
+        fleet.stacked_placement()
+        dt = time.perf_counter() - t0
+        if rep and dt < best:  # the first rep warms up
+            best = dt
+            tick = fleet.phase_seconds["tick"] - before["tick"]
+    return {f"K{K}_ms_per_machine_epoch": best / (K * MA_EPOCHS) * 1e3,
+            f"K{K}_epoch_ms": best / MA_EPOCHS * 1e3,
+            f"K{K}_tick_host_ms": tick / MA_EPOCHS * 1e3,
+            f"K{K}_live_bytes_per_machine": live / K}
+
+
+def fleet_gpu_vs_cpu(torch, np):
+    """Phase 13: the golden fleet trace on the card; the parity sweep on
+    the card and on the CPU, histories equal; the machines axis."""
+    golden = golden_fleet(np)
+    check(golden, "the card's fleet replays tests/golden/fleet_trace.json bit for bit")
+    gpu, gpu_s = parity_sweep("cuda")
+    cpu, cpu_s = parity_sweep("cpu")
+    hist = {n: text_of(r.history) for n, r in gpu.results.items()} == \
+        {n: text_of(r.history) for n, r in cpu.results.items()}
+    phases = {n: text_of(r.phases) for n, r in gpu.results.items()} == \
+        {n: text_of(r.phases) for n, r in cpu.results.items()}
+    check(hist and phases, "the parity sweep's histories and phases equal on the card and the CPU")
+    moved = min(sum(r.migrated_pages for r in res.history) for res in gpu.results.values())
+    check(moved > 0, f"pages move on every machine of the parity sweep: {moved}")
+    out = dict(golden_trace_equal=golden, sweep_histories_equal=hist, sweep_phases_equal=phases,
+               sweep_min_migrated=moved, sweep_gpu_s=gpu_s, sweep_cpu_s=cpu_s)
+    for K in MA_AXIS:
+        out.update(machines_point(torch, np, K))
+        free_device(torch)
+    return out
+
+
 # --------------------------------------------------------------------- main
 def shape_entry(k: dict, path: str, launches) -> dict:
     """One measured shape of a kernel for the ``kernels`` line."""
@@ -1794,6 +2083,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device available; this script runs on the GPU",
               file=sys.stderr)
         return 2
+    # a vmap op without a batching rule falls back to a loop over the
+    # machines and warns: on this path that is an error (every thread)
+    warnings.filterwarnings("error", message=BATCHING_RULE)
     from repro_torch.kernels import _build
 
     smi = subprocess.run(
@@ -1924,6 +2216,25 @@ def main() -> int:
         emit(f"phase11 steady phase {name} (as found, not gated)", **row)
     free_device(torch)
 
+    # phase 12, sweep-64k: the fleet sweep at BENCH_fleet.json's size
+    sc12, sc12_launches = sweep_64k(torch, np)
+    emit("phase12 sweep-64k", **sc12)
+    emit("phase12 launches", **sc12_launches)
+    free_device(torch)
+
+    # phase 13, fleet-gpu-vs-cpu: golden trace, the parity sweep, machines axis
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    sc13 = fleet_gpu_vs_cpu(torch, np)
+    torch.cuda.synchronize()
+    sc13_launches = ops.launch_counts()
+    emit("phase13 fleet-gpu-vs-cpu", **sc13)
+    emit("phase13 launches", **sc13_launches)
+    check(not any(sc13_launches.values()), f"the fleet path launches no kernel: {sc13_launches}")
+    free_device(torch)
+
     sources = {
         "page_move": ("src/repro_torch/kernels/csrc/page_copy.cu",
                       "src/repro/kernels/page_copy.py:34"),
@@ -1984,6 +2295,11 @@ def main() -> int:
         shape_entry(attn["flash_attention bfloat16 qwen2moe S512"], "serve-qwen2moe S512", None),
         {"path": "coloc-legs", "launches": cl_launches["flash_attention"]},
     ]
+    for row in rows:  # the fleet paths (phases 12-13) launch none of the kernels
+        row.setdefault("shapes", []).extend([
+            {"path": "sweep-64k", "launches": sc12_launches[row["name"]]},
+            {"path": "fleet-gpu-vs-cpu", "launches": sc13_launches[row["name"]]},
+        ])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,26 @@
 """MaxMem core on PyTorch: FMMR QoS policy, hotness bins, sampling, the
-central manager and the page data plane; the colocation simulator, the
-placement baselines and the dynamic-scenario engine that drive it."""
+central manager and the page data plane; the fleet of managers advanced by
+one batched tick; the colocation simulator, the placement baselines and the
+dynamic-scenario engine that drive them, and its sweep over a fleet."""
 from repro_torch.core.baselines import AutoNUMALike, HeMemStatic, TwoLM
+from repro_torch.core.fleet import (
+    DispatchError,
+    FleetManager,
+    FleetMultiEpochResult,
+    fleet_multi_epoch,
+)
 from repro_torch.core.manager import CentralManager, TenantHandle
 from repro_torch.core.scenario import (
     STORM_FAMILIES,
     PhaseStats,
     Scenario,
     ScenarioResult,
+    ScenarioSweep,
+    SweepPoint,
+    SweepResult,
     adversarial_scenario,
     run_scenario,
+    run_sweep,
     scale_colocation,
     storm_scenario,
 )
@@ -38,7 +49,10 @@ __all__ = [
     "AutoNUMALike",
     "CentralManager",
     "ColocationSim",
+    "DispatchError",
     "EpochRecord",
+    "FleetManager",
+    "FleetMultiEpochResult",
     "HeMemStatic",
     "MachineSpec",
     "OPTANE",
@@ -46,12 +60,17 @@ __all__ = [
     "STORM_FAMILIES",
     "Scenario",
     "ScenarioResult",
+    "ScenarioSweep",
+    "SweepPoint",
+    "SweepResult",
     "TPU_HOST",
     "TierSpec",
     "TwoLM",
     "WorkloadSpec",
     "adversarial_scenario",
+    "fleet_multi_epoch",
     "run_scenario",
+    "run_sweep",
     "scale_colocation",
     "storm_scenario",
     "TenantHandle",

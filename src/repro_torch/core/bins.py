@@ -30,15 +30,20 @@ def seg_sums(values_sorted: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
     return cum0[start[1:]] - cum0[start[:-1]]
 
 
-def bin_of(count: torch.Tensor, num_bins: int) -> torch.Tensor:
-    """Heat-bin id (int64) for (effective) counts, read as u32 values."""
+def bin_of(count: torch.Tensor, num_bins) -> torch.Tensor:
+    """Heat-bin id (int64) for (effective) counts, read as u32 values.
+    ``num_bins`` is an int or a 0-d integer tensor (a fleet's machine)."""
     c = count.to(torch.int64) & MASK32
     fl = bit_length(c) - 1  # floor(log2(c)); -1 for c == 0 (torch has no clz)
+    if isinstance(num_bins, torch.Tensor):
+        return torch.minimum(torch.clamp(fl + 1, min=0), num_bins - 1)
     return torch.clamp(fl + 1, 0, num_bins - 1)
 
 
-def cool_threshold(num_bins: int) -> int:
+def cool_threshold(num_bins):
     """Counts >= 2^(num_bins-1) trigger a tenant-wide cooling event."""
+    if isinstance(num_bins, torch.Tensor):
+        return torch.bitwise_left_shift(torch.ones_like(num_bins), num_bins - 1) & MASK32
     return (1 << (num_bins - 1)) & MASK32
 
 
@@ -55,7 +60,7 @@ def accumulate_and_count(
     pages: PageState,
     tenants: TenantState,
     sampled: torch.Tensor,  # i64[P] (u32 values) sampled accesses this epoch
-    num_bins: int,
+    num_bins,
     owner_onehot: Optional[torch.Tensor] = None,  # bool[T, P]
     segs: Optional[OwnerSegments] = None,
 ) -> Tuple[PageState, TenantState, torch.Tensor, torch.Tensor]:
@@ -77,7 +82,7 @@ def accumulate_and_count(
     if segs is not None:
         idx = torch.where(over, owner, T)
         hits = torch.zeros(T + 1, dtype=torch.int64, device=idx.device)
-        hits.index_add_(0, idx, torch.ones_like(idx))
+        hits = hits.scatter_add(0, idx, torch.ones_like(idx))  # batches under vmap
         cooled = hits[:T] > 0
     else:
         if owner_onehot is None:

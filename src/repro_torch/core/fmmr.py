@@ -11,7 +11,8 @@ Functions on [T]-shaped tenant tensors. Semantics as the reference:
 Bit-parity with the reference's float32 program: every formula keeps its
 order of operations, each float32 sum over tenants runs left to right (as
 XLA:CPU reduces a short vector) through :func:`fsum`, and the EWMA is one
-fused multiply-add as XLA:CPU contracts it. A one-ulp change in ``a_miss``
+fused multiply-add as XLA:CPU contracts it (which product it fuses depends
+on the program: :func:`update_ewma`). A one-ulp change in ``a_miss``
 against ``t * (1 + band)`` flips a needer/donor decision.
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.sampler import fma_f32
-from repro_torch.core.types import INT32_MAX, TenantState
+from repro_torch.core.types import INT32_MAX, TenantState, knob_f32, knob_max, knob_min, pick
 
 _EPS = float(np.float32(1e-9))
 
@@ -43,12 +44,29 @@ def fmmr_now(a_fast: torch.Tensor, a_slow: torch.Tensor) -> torch.Tensor:
     return torch.where(tot > 0, a_slow / torch.clamp(tot, min=1.0), torch.zeros_like(tot))
 
 
-def update_ewma(prev: torch.Tensor, now: torch.Tensor, lam: float) -> torch.Tensor:
-    """``lam * now + (1 - lam) * prev`` as XLA:CPU computes it: the first
-    product fused into the add."""
-    lam32 = np.float32(lam)
-    rest = prev * float(np.float32(1.0) - lam32)
-    return fma_f32(now, float(lam32), rest)
+def update_ewma(prev: torch.Tensor, now: torch.Tensor, lam, scan: bool = False) -> torch.Tensor:
+    """``lam * now + (1 - lam) * prev`` as XLA:CPU computes it: one product
+    rounded, the other fused into the add. In the reference's single-epoch
+    program ``(1 - lam) * prev`` is rounded; in its k-epoch scan (and the
+    fleet's vmapped scan, ``scan=True``) ``lam * now`` is. At ``lam`` = 0.5
+    both give the same bits. ``lam`` is a float or a 0-d float32 tensor;
+    ``1 - lam`` is rounded to float32 either way."""
+    if isinstance(lam, torch.Tensor):
+        lam32 = lam.to(torch.float32)
+        rest = 1.0 - lam32
+    else:
+        lam32 = float(np.float32(lam))
+        rest = float(np.float32(1.0) - np.float32(lam))
+    if scan:
+        return fma_f32(prev, rest, now * lam32)
+    return fma_f32(now, lam32, prev * rest)
+
+
+def _band_factor(sign: float, band) -> float:
+    """``1 + sign * band`` rounded to float32, for a float or tensor band."""
+    if isinstance(band, torch.Tensor):
+        return 1.0 + sign * band.to(torch.float32)
+    return float(np.float32(1.0) + np.float32(sign) * np.float32(band))
 
 
 class Realloc(NamedTuple):
@@ -76,24 +94,25 @@ def reallocate(
     tenants: TenantState,
     fast_pages: torch.Tensor,  # i64[T] current fast-page holdings
     free_fast: torch.Tensor,  # i64[] unallocated fast slots
-    budget: int,  # R: pages of reallocation bandwidth this epoch
-    fair_mode: bool = False,
-    hysteresis: float = 0.0,
+    budget,  # R: pages of reallocation bandwidth this epoch
+    fair_mode=False,
+    hysteresis=0.0,
     need_band=None,
     donor_band=None,
 ) -> Realloc:
+    """The knobs (``budget``, ``fair_mode``, the bands) are Python scalars
+    or 0-d tensors (a fleet's machine under ``vmap``)."""
     act = tenants.active
     a, t = tenants.a_miss, tenants.t_miss
     dev = a.device
-    R = float(np.float32(budget))
-    band = np.float32(hysteresis)
-    nb = band if need_band is None else np.float32(need_band)
-    db = band if donor_band is None else np.float32(donor_band)
+    R = knob_f32(budget)
+    nb = hysteresis if need_band is None else need_band
+    db = hysteresis if donor_band is None else donor_band
     zero_f = torch.zeros_like(a)
     int_max = torch.full_like(tenants.arrival, INT32_MAX)
 
-    need_mask = act & (a > t * float(np.float32(1.0) + nb))
-    donor_mask = act & (a < t * float(np.float32(1.0) - db)) & (fast_pages > 0)
+    need_mask = act & (a > t * _band_factor(1.0, nb))
+    donor_mask = act & (a < t * _band_factor(-1.0, db)) & (fast_pages > 0)
     zero_donor = donor_mask & (a <= _EPS)
 
     # --- takes -------------------------------------------------------------
@@ -131,7 +150,7 @@ def reallocate(
         torch.zeros((), dtype=torch.float32, device=dev),
     )
     fair = torch.floor(give_want.to(torch.float32) * scale).to(torch.int64)
-    give = fair if fair_mode else fcfs
+    give = pick(fair_mode, fair, fcfs)
     give = torch.where(act, give, 0)
 
     # don't take more than what gets redistributed
@@ -146,7 +165,7 @@ def reallocate(
     no_needers = ~need_mask.any()
     n_act = torch.clamp(act.sum(), min=1)
     share = torch.div(fast_pages.sum() + free_fast, n_act, rounding_mode="floor")
-    trickle = max(budget // 8, 1)
+    trickle = knob_max(budget // 8, 1)
     want_take_eq = torch.where(
         act & (a < t * float(np.float32(0.7))), torch.clamp(fast_pages - share, min=0), 0
     )
@@ -156,13 +175,13 @@ def reallocate(
         tot = torch.clamp(fsum(want), min=1.0)
         return torch.floor(want * (torch.minimum(cap, tot) / tot)).to(torch.int64)
 
-    matched = torch.clamp(
-        torch.minimum(want_take_eq.sum(), want_give_eq.sum() + free_fast), max=trickle
+    matched = knob_min(
+        torch.minimum(want_take_eq.sum(), want_give_eq.sum() + free_fast), trickle
     ).to(torch.float32)
     take_eq = _scale(want_take_eq.to(torch.float32), matched)
     give_eq = _scale(
         want_give_eq.to(torch.float32),
-        torch.clamp((take_eq.sum() + free_fast).to(torch.float32), max=float(trickle)),
+        knob_min((take_eq.sum() + free_fast).to(torch.float32), knob_f32(trickle)),
     )
     give = torch.where(no_needers, give_eq, give)
     take = torch.where(no_needers, take_eq, take)

@@ -208,6 +208,12 @@ class CentralManager:
         self.device = resolve_device(device)
         self.num_pages = num_pages
         self.max_tenants = max_tenants
+        # fleet hooks (core/fleet.py): the policy state sits behind a
+        # property; any setter marks the machine mutated, and a fleet
+        # dispatch parks the advanced state as a lazy slice of its stack
+        self._state_val: Optional[PolicyState] = None
+        self._state_thunk = None
+        self._mutated = True
         self.params = PolicyParams(
             fast_capacity=int(fast_capacity),
             migration_budget=int(migration_budget),
@@ -258,6 +264,31 @@ class CentralManager:
             )
 
     # --------------------------------------------------------- state views
+    @property
+    def _state(self) -> PolicyState:
+        if self._state_thunk is not None:
+            self._state_val = self._state_thunk()
+            self._state_thunk = None
+        return self._state_val
+
+    @_state.setter
+    def _state(self, value: PolicyState) -> None:
+        self._state_val = value
+        self._state_thunk = None
+        self._mutated = True
+
+    def _set_fleet_state(self, thunk) -> None:
+        """Park the machine's advanced state as a lazy slice of a fleet's
+        stacked state (core/fleet.py): ``thunk()`` materialises it the
+        first time a control-plane or telemetry path reads it. Until a
+        setter fires, the fleet knows this machine's row of its stack is
+        current and skips the upload. The slice's segments are new
+        tensors, so ``_segs_ref`` no longer matches them and the next
+        ownership change rebuilds the permutation from scratch."""
+        self._state_val = None
+        self._state_thunk = thunk
+        self._mutated = False
+
     @property
     def pages(self) -> PageState:
         return self._state.pages

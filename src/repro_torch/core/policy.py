@@ -67,6 +67,9 @@ from repro_torch.core.types import (
     PolicyState,
     QueueStats,
     TenantState,
+    knob_f32,
+    knob_max,
+    pick,
 )
 
 # Effective counts at or above this value share one histogram bucket.
@@ -90,8 +93,9 @@ def _scatter_add(size: int, idx: torch.Tensor, values: torch.Tensor) -> torch.Te
     idx = torch.where(idx < 0, idx + size, idx)
     idx = torch.where((idx < 0) | (idx >= size), size, idx)
     out = torch.zeros(size + 1, dtype=values.dtype, device=idx.device)
-    out.index_add_(0, idx, values)
-    return out[:size]
+    # scatter_add, not index_add: under vmap (core/fleet.py) index_add's
+    # batching rule loops over the machines; scatter_add's does not
+    return out.scatter_add(0, idx, values)[:size]
 
 
 def _set_where(base: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
@@ -99,9 +103,7 @@ def _set_where(base: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
     where ``idx`` is in [0, len(base)] and len(base) means "drop". Every
     write stores the same value, so duplicate indices are deterministic."""
     n = base.shape[0]
-    out = torch.cat([base, base.new_zeros(1)])
-    out[idx] = value
-    return out[:n]
+    return torch.cat([base, base.new_zeros(1)]).index_fill(0, idx, value)[:n]
 
 
 def _per_tenant_pages(pages: PageState, max_tenants: int, segs=None, owner_onehot=None):
@@ -125,6 +127,14 @@ def _onehot(owner: torch.Tensor, T: int) -> torch.Tensor:
 def _srch(sorted_rows: torch.Tensor, values: torch.Tensor, side: str) -> torch.Tensor:
     """Per-row ``searchsorted`` (the reference's vmapped jnp.searchsorted)."""
     return torch.searchsorted(sorted_rows, values[:, None].contiguous(), side=side)[:, 0]
+
+
+def _rank_positions(cum: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """Position of the (j+1)-th set entry of a mask from its prefix count
+    ``cum``: ``searchsorted(cum, j + 1)``. The values are built from ``cum``
+    so that under ``vmap`` (core/fleet.py) they are batched and contiguous,
+    not an expanded view."""
+    return torch.searchsorted(cum, (j + 1) + cum[:1] * 0, side="left")
 
 
 def _select_victims(
@@ -257,9 +267,12 @@ def _epoch_core(
     collect_plan: bool,
     exclude: Optional[torch.Tensor] = None,  # bool[P] pages barred from selection
     segs: Optional[OwnerSegments] = None,
+    scan: bool = False,
 ):
     """One policy epoch. Returns (pages, tenants, promote_mask, demote_mask,
-    plan | None, stats); ``pages`` still carries pre-migration tiers."""
+    plan | None, stats); ``pages`` still carries pre-migration tiers.
+    ``scan`` selects the EWMA's rounding of the reference's k-epoch scan
+    (``fmmr.update_ewma``)."""
     P = pages.owner.shape[0]
     T = max_tenants
     C = count_clamp
@@ -285,7 +298,7 @@ def _epoch_core(
 
     # ---- 2. FMMR update ----------------------------------------------------
     now = fmmr.fmmr_now(s_fast.to(torch.float32), s_slow.to(torch.float32))
-    ewma = fmmr.update_ewma(tenants.a_miss, now, params.ewma_lambda)
+    ewma = fmmr.update_ewma(tenants.a_miss, now, params.ewma_lambda, scan=scan)
     ewma = torch.where(tenants.active, ewma, torch.zeros_like(ewma))
     tenants = tenants._replace(a_miss=ewma)
 
@@ -318,8 +331,8 @@ def _epoch_core(
         params.fast_capacity - params.alloc_headroom - fast_hold.sum(), min=0
     )
     realloc_budget = params.migration_budget // 2
-    band_need = params.promote_band if params.promote_band >= 0 else params.hysteresis
-    band_donor = params.demote_band if params.demote_band >= 0 else params.hysteresis
+    band_need = pick(params.promote_band >= 0, params.promote_band, params.hysteresis)
+    band_donor = pick(params.demote_band >= 0, params.demote_band, params.hysteresis)
     ra = fmmr.reallocate(
         tenants, fast_hold, free_fast, realloc_budget,
         fair_mode=params.fair_mode, hysteresis=params.hysteresis,
@@ -327,9 +340,12 @@ def _epoch_core(
     )
     tenants = tenants._replace(flagged=ra.flagged)
     ra_moves = ra.give.sum() + ra.take.sum()
+    # a true float32 division, as the reference's (``scalar / tensor`` in
+    # torch multiplies by the reciprocal: two roundings)
+    moves32 = torch.clamp(ra_moves, min=1).to(torch.float32)
     ra_scale = torch.where(
         ra_moves > realloc_budget,
-        float(realloc_budget) / torch.clamp(ra_moves, min=1).to(torch.float32),
+        torch.div(torch.full_like(moves32, 1.0) * knob_f32(realloc_budget), moves32),
         torch.ones((), dtype=torch.float32, device=dev),
     )
     take2 = torch.floor(ra.take.to(torch.float32) * ra_scale).to(_I64)
@@ -357,8 +373,8 @@ def _epoch_core(
         j = torch.arange(plan_size, dtype=_I64, device=dev)
         cum_p = tiled_cumsum(promote_mask.to(_I64))
         cum_d = tiled_cumsum(demote_mask.to(_I64))
-        idx_p = torch.searchsorted(cum_p, j + 1, side="left")
-        idx_d = torch.searchsorted(cum_d, j + 1, side="left")
+        idx_p = _rank_positions(cum_p, j)
+        idx_d = _rank_positions(cum_d, j)
         plan = MigrationPlan(
             promote=torch.where(j < cum_p[-1], idx_p, -1),
             demote=torch.where(j < cum_d[-1], idx_d, -1),
@@ -393,7 +409,7 @@ def _compact(mask, out_len: int, arrays, pads):
     arrays of length ``out_len`` (the rest is dropped) by rank lookup."""
     cum = tiled_cumsum(mask.to(_I64))
     j = torch.arange(out_len, dtype=_I64, device=mask.device)
-    idx = torch.clamp(torch.searchsorted(cum, j + 1, side="left"), max=mask.shape[0] - 1)
+    idx = torch.clamp(_rank_positions(cum, j), max=mask.shape[0] - 1)
     keep = j < cum[-1]
     return [torch.where(keep, a[idx], torch.full_like(a[idx], pad)) for a, pad in zip(arrays, pads)]
 
@@ -445,14 +461,14 @@ def _queue_tick(
     owned = pages.owner[qp] >= 0
     reheat = real & (queue.direction == DIR_DEMOTE) & (heat_bin[qp] > queue.heat)
     cancel = real & (~owned | reheat)
-    cooldown = max(params.demote_cooldown, 0)
+    cooldown = knob_max(params.demote_cooldown, 0)
     entomb = cancel & reheat & owned & (cooldown > 0)
     tomb_live = tomb & owned & (epoch < queue.complete_epoch)
     keep = (real & ~cancel) | entomb | tomb_live
     n_cancel = cancel.sum()
 
     # ---- enqueue: kept entries first (FIFO), then new demotes, promotes --
-    lat = max(params.migration_latency, 0)
+    lat = knob_max(params.migration_latency, 0)
     in_q = _set_where(
         torch.zeros(P, dtype=torch.bool, device=dev),
         torch.where(keep, queue.page.to(_I64), P), True,
@@ -466,14 +482,15 @@ def _queue_tick(
 
     # ---- queue admission control (params.promote_admission) --------------
     depth_pre = real.sum()
-    if params.promote_admission < 0:
+    admission = params.promote_admission
+    if not isinstance(admission, torch.Tensor) and admission < 0:
         cap = INT32_MAX
     else:
         sev = torch.clamp(
             torch.div(2 * n_cancel, torch.clamp(depth_pre, min=1), rounding_mode="floor"), 0, 2
         )
-        base = torch.full_like(sev, max(params.promote_admission, 0))
-        cap = torch.clamp(base >> sev, min=1)
+        base = torch.zeros_like(sev) + knob_max(admission, 0)
+        cap = pick(admission < 0, INT32_MAX, torch.clamp(base >> sev, min=1))
     pv = p_ids >= 0
     p_ids = torch.where(pv & (tiled_cumsum(pv) <= cap), p_ids, -1)
     dv = d_ids >= 0
@@ -488,7 +505,7 @@ def _queue_tick(
             ids,
             torch.where(v, direction, 0).to(torch.int8),
             ep.expand(S),
-            (ep + lat).expand(S),
+            (ep + lat).to(torch.int32).expand(S),
             torch.where(v, heat_bin[pid], 0).to(torch.int8),
         )
 
@@ -505,7 +522,7 @@ def _queue_tick(
     # ---- bounded drain: demotes first, FIFO within each direction --------
     cv = w_page >= 0
     elig = cv & (epoch >= w_cmp)
-    bw = INT32_MAX if params.migration_bandwidth < 0 else params.migration_bandwidth
+    bw = pick(params.migration_bandwidth < 0, INT32_MAX, params.migration_bandwidth)
     is_d = elig & (w_dir == DIR_DEMOTE)
     is_p = elig & (w_dir == DIR_PROMOTE)
     drain_d = is_d & (tiled_cumsum(is_d) <= bw)
@@ -570,7 +587,8 @@ def _sentinel_bits(
     post-commit state; skipped (0) when ``params.sentinel`` is off."""
     dev = pages.tier.device
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    if params.sentinel <= 0:
+    on = params.sentinel > 0
+    if not isinstance(on, torch.Tensor) and not on:
         return zero
 
     def bit(cond, value):
@@ -589,18 +607,20 @@ def _sentinel_bits(
             - qstats.cancelled - qstats.dropped
         )
         bits = bits | bit(qstats.depth != depth_before + flow, SENTINEL_QUEUE)
-    return bits
+    return pick(on, bits, zero)
 
 
 def _step(st: PolicyState, pending, params, max_tenants, plan_size, exact_sampling,
-          collect_plan, z):
-    """One fused epoch on ``st`` with the backlog ``pending``."""
+          collect_plan, z, scan: bool = False):
+    """One fused epoch on ``st`` with the backlog ``pending``; ``scan`` for
+    an epoch of ``multi_epoch`` or a fleet (see ``fmmr.update_ewma``)."""
     sampled = sample_accesses(st.rng, pending, params.sample_period, exact=exact_sampling, z=z)
     queue_mode = st.queue is not None and st.queue.size > 0
     depth_before = _real_depth(st.queue) if queue_mode else None
     pages, tenants, pm, dm, plan, stats = _epoch_core(
         st.pages, st.tenants, sampled, params, max_tenants, plan_size, COUNT_CLAMP,
         collect_plan=collect_plan or queue_mode, exclude=_inflight_mask(st), segs=st.segs,
+        scan=scan,
     )
     pages, queue, epoch, stats = _commit(st, pages, tenants, pm, dm, plan, stats, params)
     stats = stats._replace(
@@ -648,14 +668,26 @@ def clt_deviates(rng: torch.Generator, k: int, P: int, device) -> torch.Tensor:
     return (popcount32(bits).to(torch.float32) - 8.0) * 0.5
 
 
-def _stack(trees):
+def _stack(trees, dim: int = 0):
     """Stack a list of equal-structured NamedTuples of tensors leafwise."""
     first = trees[0]
     if first is None:
         return None
     if isinstance(first, torch.Tensor):
-        return torch.stack(trees)
-    return type(first)(*(_stack([t[i] for t in trees]) for i in range(len(first))))
+        return torch.stack(trees, dim)
+    return type(first)(*(_stack([t[i] for t in trees], dim) for i in range(len(first))))
+
+
+def _trim_stats(stats: EpochStats) -> EpochStats:
+    """Drop the telemetry leaves the sweep's record path never reads:
+    ``cooled``, ``slow_pages`` and, in queue mode, the [W]-wide drained id
+    lists, which dominate the telemetry copy. Only paths without a page
+    pool trim (the pool is the one reader of the drained ids)."""
+    if stats.queue is not None:
+        stats = stats._replace(
+            queue=stats.queue._replace(drained_promote_ids=None, drained_demote_ids=None)
+        )
+    return stats._replace(cooled=None, slow_pages=None)
 
 
 def multi_epoch(
@@ -668,6 +700,7 @@ def multi_epoch(
     plan_size: int,
     exact_sampling: bool = False,
     collect_plans: bool = True,
+    trim_stats: bool = False,
     z: Optional[torch.Tensor] = None,
 ):
     """``k`` fused epochs as a loop over the single-epoch body.
@@ -677,7 +710,8 @@ def multi_epoch(
     per-epoch output stacked on a leading k axis; ``plans`` is None when
     ``collect_plans=False``. Without exact sampling the deviates are the
     popcount CLT deviates of :func:`clt_deviates` drawn from ``state.rng``,
-    or ``z`` [k, P] passed in from outside."""
+    or ``z`` [k, P] passed in from outside. ``trim_stats`` drops the leaves
+    :func:`_trim_stats` names."""
     P = state.pending.shape[0]
     dev = state.pending.device
     if counts is not None:
@@ -692,9 +726,9 @@ def multi_epoch(
             pending = (pending + (counts if counts.dim() == 1 else counts[i])) & MASK32
         st, plan, stats = _step(
             st, pending, params, max_tenants, plan_size, exact_sampling, collect_plans,
-            None if z is None else z[i],
+            None if z is None else z[i], scan=True,
         )
         plans.append(plan if collect_plans else None)
-        stats_k.append(stats)
+        stats_k.append(_trim_stats(stats) if trim_stats else stats)
         flagged.append(st.tenants.flagged)
     return st, _stack(plans), _stack(stats_k), torch.stack(flagged)

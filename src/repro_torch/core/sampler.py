@@ -49,7 +49,7 @@ def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
 def sample_accesses(
     rng: Optional[torch.Generator],
     counts: torch.Tensor,  # i64[P] (u32 values) exact accesses this epoch
-    sample_period: int,
+    sample_period,  # int, or a 0-d integer tensor (one machine of a fleet)
     *,
     exact: bool = False,
     z: Optional[torch.Tensor] = None,  # optional pre-drawn f32[P] deviates
@@ -58,10 +58,14 @@ def sample_accesses(
     counts = counts.to(torch.int64) & MASK32
     if exact:
         return counts.clone()
-    period = np.float32(sample_period)
-    p = np.float32(1.0) / np.maximum(period, np.float32(1.0))
+    if isinstance(sample_period, torch.Tensor):
+        period = sample_period.to(torch.float32)
+        p = torch.reciprocal(torch.clamp(period, min=1.0))
+    else:
+        period = np.float32(sample_period)
+        p = float(np.float32(1.0) / np.maximum(period, np.float32(1.0)))
     n = counts.to(torch.float32)
-    lam = n * float(p)
+    lam = n * p
     if z is None:
         z = torch.randn(lam.shape, generator=rng, dtype=torch.float32, device=lam.device)
     z = z.to(device=lam.device, dtype=torch.float32)
@@ -69,6 +73,8 @@ def sample_accesses(
     draw = torch.minimum(torch.clamp(draw, min=0.0), n)
     # f32 -> u32 saturates at the top of the range (an n rounded up to 2^32)
     sampled = torch.clamp(draw.to(torch.int64), max=MASK32)
+    if isinstance(period, torch.Tensor):
+        return torch.where(period <= 1.0, counts, sampled)
     if period <= 1.0:
         return counts.clone()
     return sampled

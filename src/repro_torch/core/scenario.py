@@ -50,11 +50,12 @@ Epoch boundaries at which any event fires split the timeline into *phases*;
 (plus migration bytes and mean queue depth), which is exactly the shape of
 the paper's Fig. 7-9 curves.
 
-A copy of the JAX package's ``core/scenario.py`` up to ``run_scenario``;
-host numpy, so the same timeline drives the reference and the port, and the
-port's manager wherever it lives. The fleet sweep (``SweepPoint``,
-``ScenarioSweep``, ``SweepResult``, ``run_sweep``) drives the fleet manager
-and is not ported yet (ROADMAP Queue 1 item 8).
+A copy of the JAX package's ``core/scenario.py``; host numpy, so the same
+timeline drives the reference and the port, and the port's manager wherever
+it lives. The fleet sweep (``SweepPoint``, ``ScenarioSweep``,
+``SweepResult``, :func:`run_sweep`) runs one timeline on a grid of machines
+through ``core.fleet.FleetManager``: every chunk of every machine in one
+batched tick.
 """
 from __future__ import annotations
 
@@ -63,6 +64,8 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from repro_torch.core.faults import SentinelError
+from repro_torch.core.manager import CentralManager
 from repro_torch.core.simulator import OPTANE, ColocationSim, EpochRecord, WorkloadSpec
 
 
@@ -1052,3 +1055,409 @@ def run_scenario(
     }
     sim.run(scenario.n_epochs, events)
     return _collect_phases(sim, scenario, base)
+
+
+# ------------------------------------------------------------------- sweep
+@dataclass(frozen=True)
+class SweepPoint:
+    """One machine of a :class:`ScenarioSweep`: the knobs that vary across
+    the grid. Every field maps onto a ``PolicyParams`` leaf that the fleet
+    stacks per machine (or onto the seed), so a whole grid runs as one
+    batched tick; shape knobs (page count, queue size, tenant table) live
+    on the sweep itself."""
+
+    name: str
+    seed: int = 0  # manager PRNG + simulator access-noise stream
+    migration_budget: Optional[int] = None  # None = the sweep-wide default
+    migration_bandwidth: Optional[int] = None  # needs queue_size > 0
+    migration_latency: int = 0
+    sample_period: Optional[int] = None
+    # remaining policy knobs (docs/PARAMS.md) - None = the CentralManager
+    # default; an autotuner maps one candidate config onto each point
+    ewma_lambda: Optional[float] = None
+    hysteresis: Optional[float] = None
+    num_bins: Optional[int] = None
+    alloc_headroom: Optional[int] = None
+    fast_capacity: Optional[int] = None  # tier size varies too (<= num_pages)
+    # storm guards (DESIGN.md §11), off by default; admission and cooldown
+    # act on the queue tick, so they need queue_size > 0
+    promote_band: Optional[float] = None
+    demote_band: Optional[float] = None
+    promote_admission: Optional[int] = None
+    demote_cooldown: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class ScenarioSweep:
+    """One event schedule, a batched grid of machine configurations.
+
+    Every sweep point runs the same scenario (the same event timeline) on
+    its own machine; the fleet advances all of them in one batched tick per
+    chunk (``core.fleet.FleetManager``)."""
+
+    scenario: Scenario
+    points: Tuple[SweepPoint, ...]
+
+    def __post_init__(self):
+        assert len(self.points) > 0, "sweep needs at least one point"
+        names = [p.name for p in self.points]
+        assert len(set(names)) == len(names), "sweep point names must be unique"
+
+
+@dataclass
+class SweepResult:
+    sweep: ScenarioSweep
+    results: Dict[str, ScenarioResult]  # per sweep-point name
+    wall_s: float = 0.0
+    devices: int = 1  # devices the machine axis ran over
+    pipeline: bool = False  # double-buffered host/device driving was on
+    partial: bool = False  # stopped at a checkpoint via ``stop_after``
+    fallbacks: int = 0  # dispatch faults recovered onto the inline path
+    restores: int = 0  # sentinel-triggered checkpoint restores
+
+    def to_jsonable(self) -> dict:
+        return {
+            "scenario": self.sweep.scenario.name,
+            "n_machines": len(self.sweep.points),
+            "wall_s": round(self.wall_s, 3),
+            "devices": self.devices,
+            "pipeline": self.pipeline,
+            "partial": self.partial,
+            "fallbacks": self.fallbacks,
+            "restores": self.restores,
+            "machines": {k: r.to_jsonable() for k, r in self.results.items()},
+        }
+
+
+def run_sweep(
+    sweep: ScenarioSweep,
+    *,
+    num_pages: int,
+    fast_capacity: int,
+    migration_budget: int,
+    max_tenants: int = 16,
+    sample_period: int = 100,
+    queue_size: int = 0,
+    machine=None,
+    epoch_seconds: float = 1.0,
+    access_noise: bool = True,
+    policy_chunk: int = 16,
+    devices=None,
+    device=None,
+    pipeline: bool = True,
+    trim_stats: bool = True,
+    sentinel: bool = False,
+    checkpoint_every: Optional[int] = None,
+    checkpoint_dir: Optional[str] = None,
+    resume: bool = False,
+    dispatch_timeout: Optional[float] = None,
+    stop_after: Optional[int] = None,
+    max_restores: int = 3,
+    on_fleet: Optional[Callable] = None,
+) -> SweepResult:
+    """Execute a :class:`ScenarioSweep` on the fleet.
+
+    Builds one ``CentralManager`` per sweep point on ``device`` (``None``:
+    the card; pass ``"cpu"`` to run on the CPU) with the point's knobs,
+    wraps them in a ``core.fleet.FleetManager`` (``devices``: ``None`` or
+    ``1``) and drives the shared event schedule: at every phase boundary
+    the events fire on each machine's simulator (control-plane host
+    operations), and the epochs between boundaries run in chunks through
+    the fleet.
+
+    The chunks run as a double-buffered pipeline (DESIGN.md §6): while
+    chunk *k* runs on the dispatch thread, the host records chunk *k-1*'s
+    telemetry (its end placement is chunk *k*'s entry placement, read in
+    one stacked copy that also seeds every manager's snapshot cache) and
+    the cost-model matrices of an event-free stretch are reused across its
+    chunks. With ``trim_stats`` the telemetry carries only what the record
+    path reads. ``pipeline=False`` runs prepare -> execute -> record per
+    chunk in turn; the recorded histories are the same either way, because
+    every record consumes the same placement and telemetry values in the
+    same order.
+
+    Chunk semantics match ``ColocationSim.run_chunk``: within a chunk the
+    access distribution is frozen and migration stalls are not modeled;
+    chunk boundaries (every event epoch, at least every ``policy_chunk``
+    epochs) re-measure placement exactly.
+
+    Fault tolerance (DESIGN.md §7):
+
+      * ``sentinel=True`` turns each machine's invariant sentinel on; a
+        non-zero bitmask in a chunk's telemetry raises
+        :class:`~repro_torch.core.faults.SentinelError` before the chunk
+        is recorded, and — when checkpointing is on — the sweep restores
+        from the last checkpoint and replays (transient corruptions like
+        ``TelemetryCorrupt`` are not re-fired). After ``max_restores``
+        round trips the error propagates.
+      * ``checkpoint_every=N`` (requires ``checkpoint_dir``) saves the
+        complete sweep state at the first fully-flushed chunk boundary
+        every N epochs; ``resume=True`` continues from the latest step,
+        bit-identically to an uninterrupted run. ``stop_after=E`` returns
+        a partial result right after the first checkpoint at/past epoch E
+        (the kill-simulation hook the resume-parity tests drive).
+      * ``dispatch_timeout`` bounds every wait on the dispatch worker (and
+        arms the fleet's heartbeat supervision); a timeout or worker fault
+        rolls the epoch clocks and the machines' generators back, runs the
+        chunk again inline with the same pre-drawn access counts, and keeps
+        the rest of the sweep inline; recorded histories are unaffected.
+      * ``on_fleet(fleet)`` runs right after fleet construction (chaos
+        tests use it to arm failure hooks).
+    """
+    import time as _time
+
+    from repro_torch.core.fleet import DispatchError, FleetManager
+    from repro_torch.runtime.fault_tolerance import DispatchSupervisor, SweepCheckpoint
+
+    if checkpoint_every is not None and checkpoint_dir is None:
+        raise ValueError("checkpoint_every requires checkpoint_dir")
+    if resume and checkpoint_dir is None:
+        raise ValueError("resume=True requires checkpoint_dir")
+
+    t0 = _time.time()
+    scenario = sweep.scenario
+    managers = []
+    for p in sweep.points:
+        mgr_kw = dict(
+            num_pages=num_pages,
+            fast_capacity=fast_capacity if p.fast_capacity is None
+            else p.fast_capacity,
+            migration_budget=migration_budget if p.migration_budget is None
+            else p.migration_budget,
+            max_tenants=max_tenants,
+            sample_period=sample_period if p.sample_period is None
+            else p.sample_period,
+            seed=p.seed, queue_size=queue_size,
+            migration_latency=p.migration_latency,
+            sentinel=sentinel, device=device,
+        )
+        if p.migration_bandwidth is not None:
+            mgr_kw["migration_bandwidth"] = p.migration_bandwidth
+        for knob in (
+            "ewma_lambda", "hysteresis", "num_bins", "alloc_headroom",
+            "promote_band", "demote_band", "promote_admission",
+            "demote_cooldown",
+        ):
+            v = getattr(p, knob)
+            if v is not None:
+                mgr_kw[knob] = v
+        managers.append(CentralManager(**mgr_kw))
+    fleet = FleetManager(managers, devices=devices)
+    if on_fleet is not None:
+        on_fleet(fleet)
+    supervisor = DispatchSupervisor(fleet, timeout=dispatch_timeout)
+    ckpt = SweepCheckpoint(checkpoint_dir) if checkpoint_dir is not None else None
+    sims = [
+        ColocationSim(
+            mgr, machine or OPTANE, epoch_seconds=epoch_seconds,
+            seed=p.seed, access_noise=access_noise,
+        )
+        for mgr, p in zip(managers, sweep.points)
+    ]
+    K = len(sims)
+    for ev in scenario.events:
+        mt = getattr(ev, "machine", None)
+        if mt is not None and not (0 <= int(mt) < K):
+            raise ValueError(
+                f"event {ev.label()} targets machine {mt}; sweep has {K}"
+            )
+
+    boundaries = sorted({0, *(ev.epoch for ev in scenario.events), scenario.n_epochs})
+    pending = None  # (handle, k, ctxs, counts) — the chunk currently on device
+    arrays = None  # per-sim cost-model matrices, valid within an event-free stretch
+    fired: set = set()  # id() of transient events already applied this process
+    restores = 0
+    cur = 0
+    last_ckpt = 0
+
+    if resume:
+        step = ckpt.latest()
+        if step is not None:
+            cur = ckpt.restore(fleet, sims)
+            last_ckpt = cur
+
+    def redispatch_pending() -> None:
+        """Dispatch-fault recovery: roll the epoch clocks back and re-run
+        the in-flight chunk on the serialized inline path. The retry
+        consumes the SAME pre-drawn access counts against the SAME
+        pre-dispatch state, so the recorded history is bit-identical to
+        what the worker should have produced. Degrades the rest of the
+        sweep to serialized dispatch (sticky)."""
+        nonlocal pending
+        fleet.recover_dispatch()
+        supervisor.note_fallback()
+        if pending is not None:
+            handle, k, ctxs, counts = pending
+            handle = fleet.run_epochs_async(
+                k, counts=counts, trim_stats=trim_stats, inline=True
+            )
+            pending = (handle, k, ctxs, counts)
+
+    def join_pending() -> None:
+        """Bounded wait on the in-flight chunk (the supervision point)."""
+        if pending is None:
+            return
+        try:
+            supervisor.join(pending[0])
+        except DispatchError:
+            redispatch_pending()
+
+    def sync_placement():
+        try:
+            return fleet.stacked_placement()
+        except DispatchError:
+            redispatch_pending()
+            return fleet.stacked_placement()
+
+    def flush(tiers: np.ndarray) -> None:
+        """Record the in-flight chunk against its end placement. With the
+        sentinel armed, a violation raises BEFORE anything is recorded —
+        corrupted telemetry never reaches the history."""
+        nonlocal pending
+        if pending is None:
+            return
+        handle, k, ctxs, _counts = pending
+        res = handle.result()
+        if sentinel:
+            bits = np.asarray(res.stats.sentinel)
+            if bits.any():
+                where = np.argwhere(bits != 0)[:4].tolist()
+                pending = None
+                raise SentinelError(
+                    f"sentinel bits {sorted({int(v) for v in bits[bits != 0]})} "
+                    f"at (machine, chunk-epoch) {where}"
+                )
+        for i, (sim, ctx) in enumerate(zip(sims, ctxs)):
+            if ctx is None:  # machine was down for this chunk
+                sim._record_down(k)
+            else:
+                sim._chunk_record(res.machine(i), k, ctx, tier_end=tiers[i])
+        pending = None
+
+    def restore_from_checkpoint() -> bool:
+        nonlocal cur, last_ckpt, pending, arrays, restores
+        if ckpt is None or ckpt.latest() is None or restores >= max_restores:
+            return False
+        restores += 1
+        pending = None
+        arrays = None
+        cur = ckpt.restore(fleet, sims)
+        last_ckpt = cur
+        return True
+
+    def flush_checked(tiers: np.ndarray) -> bool:
+        """flush(); on a sentinel violation restore from the last
+        checkpoint. False = the caller must restart the loop at the
+        restored cursor."""
+        try:
+            flush(tiers)
+        except SentinelError:
+            if not restore_from_checkpoint():
+                raise
+            return False
+        return True
+
+    def fire_events(evs) -> None:
+        for ev in evs:
+            if getattr(ev, "transient", False) and id(ev) in fired:
+                continue  # one-shot fault already injected before a restore
+            if isinstance(ev, (Arrive, Depart)) and fleet.failed_machines:
+                raise ValueError(
+                    f"{ev.label()} while machines {fleet.failed_machines} are "
+                    "down: tenant churn on an inert row is lost at recovery "
+                    "(schedule contract, DESIGN.md §7)"
+                )
+            targets = (
+                range(K) if getattr(ev, "machine", None) is None
+                else [int(ev.machine)]
+            )
+            if isinstance(ev, MachineFail):
+                for i in targets:
+                    fleet.fail_machine(i)
+                    sims[i].fail()
+            elif isinstance(ev, MachineRecover):
+                for i in targets:
+                    fleet.recover_machine(i)
+                    sims[i].recover()
+            elif hasattr(ev, "machine"):
+                for i in targets:
+                    ev.apply(sims[i])
+            else:
+                for sim in sims:
+                    ev.apply(sim)
+            fired.add(id(ev))
+
+    partial = False
+    while True:
+        if cur >= scenario.n_epochs:
+            join_pending()
+            tiers, _ = sync_placement()
+            if not flush_checked(tiers):
+                continue
+            break
+        evs = scenario.events_at(cur)
+        if evs:
+            # events read and mutate placement: the in-flight chunk must be
+            # recorded against the PRE-event placement first
+            join_pending()
+            tiers, _ = sync_placement()
+            if not flush_checked(tiers):
+                continue
+            fire_events(evs)
+            arrays = None  # tenant sets / probs may have changed
+        horizon = min(b for b in boundaries if b > cur)
+        k = min(policy_chunk, horizon - cur)
+        # chunk-entry placement: one stacked transfer; blocks until the
+        # previous chunk's device work is done (the pipeline sync point)
+        join_pending()
+        tiers, _ = sync_placement()
+        if arrays is None:
+            arrays = [None if sim.failed else sim._arrays() for sim in sims]
+        preps = []
+        for i, sim in enumerate(sims):
+            if sim.failed:
+                # down machine: no accesses drawn (its PRNG stream freezes
+                # with the parked state), its inert fleet row ticks on zeros
+                preps.append((np.zeros(num_pages, np.int64), None))
+            else:
+                preps.append(sim._chunk_prepare(arrays=arrays[i], tier=tiers[i]))
+        counts = np.stack([c for c, _ctx in preps])
+        handle = supervisor.dispatch(k, counts=counts, trim_stats=trim_stats)
+        # the previous chunk's end placement IS this chunk's entry: record
+        # it now, overlapped with this chunk's device execution
+        if not flush_checked(tiers):
+            continue
+        pending = (handle, k, [ctx for _c, ctx in preps], counts)
+        if not pipeline or supervisor.degraded:
+            join_pending()
+            end_tiers, _ = sync_placement()
+            if not flush_checked(end_tiers):
+                continue
+        cur += k
+        if (
+            ckpt is not None and checkpoint_every is not None
+            and cur - last_ckpt >= checkpoint_every
+        ):
+            # checkpoint only fully-flushed states: join + record the chunk
+            # that just ran, then save. The extra flush here consumes the
+            # same placement/telemetry values the next iteration would —
+            # recorded histories are unchanged by checkpointing (tested).
+            join_pending()
+            t2, _ = sync_placement()
+            if not flush_checked(t2):
+                continue
+            ckpt.save(cur, fleet, sims)
+            last_ckpt = cur
+            if stop_after is not None and cur >= stop_after and cur < scenario.n_epochs:
+                partial = True  # simulated kill right after the save
+                break
+
+    results = {
+        p.name: _collect_phases(sim, scenario, 0)
+        for p, sim in zip(sweep.points, sims)
+    }
+    return SweepResult(
+        sweep=sweep, results=results, wall_s=_time.time() - t0,
+        devices=fleet.num_shards, pipeline=pipeline and not supervisor.degraded,
+        partial=partial, fallbacks=supervisor.fallbacks, restores=restores,
+    )

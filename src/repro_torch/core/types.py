@@ -60,11 +60,45 @@ def f32(x) -> float:
     return float(np.float32(x))
 
 
+def knob_f32(x):
+    """A float knob in float32: a float32 tensor for a tensor (one value per
+    machine of a fleet, batched by ``vmap``), else :func:`f32` of it."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return f32(x)
+
+
+def pick(cond, a, b):
+    """``a if cond else b`` for a condition on a knob: ``torch.where`` when
+    the condition is a tensor."""
+    if isinstance(cond, torch.Tensor):
+        return torch.where(cond, a, b)
+    return a if cond else b
+
+
+def knob_max(x, lo: int):
+    """``max(x, lo)`` for an integer knob, a tensor or a Python int."""
+    if isinstance(x, torch.Tensor):
+        return torch.clamp(x, min=lo)
+    return max(x, lo)
+
+
+def knob_min(x: torch.Tensor, cap) -> torch.Tensor:
+    """``x`` clamped from above by a knob, a tensor or a Python scalar."""
+    if isinstance(cap, torch.Tensor):
+        return torch.minimum(x, cap)
+    return torch.clamp(x, max=cap)
+
+
 class PolicyParams(NamedTuple):
     """Knobs of the paper's policy (§3.1/§3.2) in page units.
 
-    Plain Python scalars: nothing here is a tensor, so reading a knob never
-    synchronises with the card. Float fields hold float32 values."""
+    A manager holds plain Python scalars, so reading a knob never
+    synchronises with the card; float fields hold float32 values. A fleet
+    (``core/fleet.py``) stacks its machines' knobs into tensors with a
+    leading machine axis, which ``vmap`` hands to the tick as 0-d tensors:
+    every read of a knob in the tick takes either form (:func:`knob_f32`,
+    :func:`pick`, :func:`knob_max`) and computes the same bits."""
 
     fast_capacity: int
     migration_budget: int

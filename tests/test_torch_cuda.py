@@ -387,3 +387,52 @@ def test_cuda_moe_mlp_matches_cpu(cuda, width, tokens):
     assert torch.equal(rg.rank.cpu(), rc.rank) and torch.equal(rg.valid.cpu(), rc.valid)
     torch.testing.assert_close(og.cpu(), oc, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(ag.cpu(), ac, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "sampled"])
+@pytest.mark.parametrize("queue", [0, 64], ids=["instant", "queue"])
+def test_cuda_fleet_matches_machines_alone(cuda, exact, queue):
+    """A fleet of three machines with different knobs on the card equals
+    the same machines run alone on the card, bit for bit, with no vmap
+    batching-rule fallback."""
+    import warnings
+
+    from repro_torch.core.fleet import FleetManager
+    from repro_torch.core.manager import CentralManager
+    from repro_torch.core.types import state_to_numpy
+
+    P, E = 4096, 5
+
+    def machine(s):
+        kw = dict(num_pages=P, fast_capacity=1024 + 128 * s, migration_budget=64 + 32 * s,
+                  max_tenants=8, sample_period=(1, 100, 400)[s], seed=s,
+                  ewma_lambda=(0.5, 0.3, 0.7)[s], fair_mode=bool(s % 2), num_bins=5 + s,
+                  exact_sampling=exact, queue_size=queue, device=cuda)
+        if queue:
+            kw.update(migration_bandwidth=16 + 16 * s, migration_latency=s % 2)
+        m = CentralManager(**kw)
+        for t_miss, n in ((0.1, 1200), (0.5, 1200), (1.0, 800)):
+            m.allocate(m.register(t_miss), n)
+        return m
+
+    counts = (np.random.default_rng(9).poisson(4, (3, E, P)) * 9).astype(np.int64)
+    fleet = FleetManager([machine(s) for s in range(3)])
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*batching rule.*")
+        res = fleet.run_epochs(E, counts=counts, collect_plans=True)
+    for s in range(3):
+        alone = machine(s)
+        want = alone.run_epochs(E, counts=counts[s], collect_plans=True)
+        got = res.machine(s)
+        for f in ("fmmr_now", "fmmr_ewma", "fast_pages", "promoted", "demoted", "sentinel"):
+            a, b = getattr(got.stats, f).cpu(), getattr(want.stats, f).cpu()
+            assert torch.equal(a, b.to(a.dtype)), (s, f)
+        n = want.plans.promote.shape[-1]
+        assert torch.equal(got.plans.promote[..., :n], want.plans.promote.cpu()), s
+        assert torch.equal(got.plans.demote[..., :n], want.plans.demote.cpu()), s
+        fs, ws = state_to_numpy(fleet.machines[s]._state), state_to_numpy(alone._state)
+        for part in ("pages", "tenants"):
+            for a, b in zip(getattr(fs, part), getattr(ws, part)):
+                assert np.asarray(a).tobytes() == np.asarray(b).tobytes(), (s, part)
+        assert fleet.machines[s].queue_counters() == alone.queue_counters()
