@@ -88,8 +88,27 @@ Phases, one line of numbers each:
      with exact counts (4 KiB pages, 40 us epochs) on the card and on the
      CPU, histories and phases equal; the machines axis of
      ``benchmarks/scale_bench.py`` (K = 1, 4, 16, 64 at 65,536 pages): ms
-     per machine-epoch and live bytes per machine.
-Phases 12-13 launch none of the five kernels (fleet machines have no page
+     per machine-epoch and live bytes per machine;
+ 14. ``autotune-64k``: the autotuner CLI's default search
+     (``PolicyAutotuner("thrash")`` at 65,536 pages x 96 epochs, fast
+     8,192, queue 4,096, ``policy_chunk`` 8, population 8, generations 4,
+     elites 2, seed 0, pipelined) on the card: wall time a generation,
+     machine-epochs/s, the fleet epoch split, one profiled chunk, peak
+     memory, the winner's knobs against the default (it must weakly
+     dominate); then the three profiles ``BENCH_autotune.json`` claims
+     (``colocation_64k``, ``thrash_64k``, ``skewshift_64k``) replayed
+     default against tuned at their geometry, as found; then the skewshift
+     probe (16,384 pages x 64 epochs) with default params and with an
+     ``OnlineTuner``: recovery epochs, retunes, ms a burst, the records
+     before the first retune equal and the live manager's state and
+     generator bit-equal across every burst;
+ 15. ``tuner-gpu-vs-cpu``: the exact search of
+     ``tests/test_torch_autotune.py`` (skewshift, 1,024 pages x 12 epochs,
+     population 4, generations 2, ``sample_period`` pinned to 1, 4 KiB
+     pages, 40 us epochs) on the card and the CPU, trajectory and winner
+     equal; sampled on the card, the same seed twice and a search stopped
+     at ``stop_after`` and resumed, equal to the first.
+Phases 12-15 launch none of the five kernels (fleet machines have no page
 pool) and run with ``vmap``'s batching-rule fallback warning as an error.
 Phase 2 also holds ``paged_attention`` and ``flash_attention`` against their
 plain versions, in float32 and bfloat16, at phase 5's shapes (flash at both
@@ -1813,39 +1832,6 @@ MA_AXIS, MA_PAGES, MA_TENANTS, MA_EPOCHS, MA_REPS = (1, 4, 16, 64), 65_536, 16, 
 BATCHING_RULE = ".*batching rule.*"
 
 
-def sweep_scenario(n_pages: int, n_epochs: int):
-    """benchmarks/dynamic_workload.py:355-385: 8 latency-sensitive tenants
-    (t_miss 0.3) and 6 best-effort ones at epoch 0, ``gups`` arriving at a
-    quarter, ``ls0``'s hot set resized at half, ``gups`` leaving at three
-    quarters."""
-    from repro_torch.core.scenario import Arrive, Depart, ResizeWorkingSet, Scenario
-    from repro_torch.core.simulator import WorkloadSpec
-
-    n_ls, n_be = 8, 6
-    share = n_pages // (n_ls + n_be + 2)
-    a, b, c = n_epochs // 4, n_epochs // 2, (3 * n_epochs) // 4
-    events = [Arrive(0, WorkloadSpec(f"ls{i}", n_pages=share, t_miss=0.3, threads=4,
-                                     sets=((0.2, 0.85),))) for i in range(n_ls)]
-    events += [Arrive(0, WorkloadSpec(f"be{i}", n_pages=share, t_miss=1.0, threads=8,
-                                      sets=((0.3, 0.6),))) for i in range(n_be)]
-    events += [Arrive(a, WorkloadSpec("gups", n_pages=share, t_miss=1.0, threads=8)),
-               ResizeWorkingSet(b, "ls0", 0, 0.3), Depart(c, "gups")]
-    return Scenario(name=f"sweep_colocation_{n_pages // 1024}k", n_epochs=n_epochs,
-                    events=tuple(events))
-
-
-def sweep_points(n_machines: int, base_budget: int) -> tuple:
-    """benchmarks/dynamic_workload.py:387-398: seed x migration budget."""
-    from repro_torch.core.scenario import SweepPoint
-
-    budgets = (None, 2 * base_budget, base_budget // 2, base_budget // 4)
-    return tuple(
-        SweepPoint(name=f"seed{i // len(budgets)}_bw{budgets[i % len(budgets)] or 'dflt'}",
-                   seed=i // len(budgets), migration_budget=budgets[i % len(budgets)])
-        for i in range(n_machines)
-    )
-
-
 def sweep_64k(torch, np):
     """Phase 12: the fleet sweep at BENCH_fleet.json's size on the card, its
     fleet epoch split, one profiled chunk; then the same 16 points serially
@@ -1856,6 +1842,7 @@ def sweep_64k(torch, np):
     from repro_torch.core.simulator import OPTANE, ColocationSim
     from repro_torch.core.types import state_to_numpy
     from repro_torch.kernels import ops
+    from repro_torch.launch.families import sweep_points, sweep_scenario
 
     sc = sweep_scenario(FL_PAGES, FL_EPOCHS)
     points = sweep_points(FL_MACHINES, FL_BUDGET)
@@ -2066,6 +2053,345 @@ def fleet_gpu_vs_cpu(torch, np):
     return out
 
 
+# ----------------------------------------------------------- phases 14 and 15
+# the autotuner CLI's default search (src/repro/launch/hillclimb.py:803-845):
+# the thrash family at its committed geometry
+AT_FAMILY, AT_PAGES, AT_EPOCHS = "thrash", 65_536, 96
+AT_POPULATION, AT_GENERATIONS, AT_ELITES, AT_SEED = 8, 4, 2, 0
+# benchmarks/autotune_bench.py:50-54 (full): the profiles BENCH_autotune.json claims
+AT_PROFILES = (("colocation", "colocation_64k"), ("thrash", "thrash_64k"),
+               ("skewshift", "skewshift_64k"))
+AT_REL_EPS = 1e-9  # benchmarks/autotune_bench.py:56
+# benchmarks/autotune_bench.py:136-188 (full): the online-recovery probe
+ON_PAGES, ON_EPOCHS, ON_CHUNK, ON_SEED = 16_384, 64, 2, 0
+# tests/test_torch_autotune.py's exact search
+TG_PAGES, TG_EPOCHS, TG_FAST, TG_CHUNK, TG_POPULATION, TG_GENERATIONS, TG_SEED = (
+    1024, 12, 128, 4, 4, 2, 7)
+
+
+def fleet_split(fleets, n_epochs: int, sim_s: float) -> dict:
+    """The fleet epoch split over ``fleets`` (one a generation or replay),
+    ms per fleet epoch, as phase 12 reports it."""
+    total = {k: sum(f.phase_seconds[k] for f in fleets) for k in fleets[0].phase_seconds}
+    return dict(tick_host_ms=total["tick"] / n_epochs * 1e3,
+                draw_ms=total["draw"] / n_epochs * 1e3,
+                stack_upload_ms=total["assemble"] / n_epochs * 1e3,
+                transfer_ms=total["transfer"] / n_epochs * 1e3,
+                simulators_ms=sim_s / n_epochs * 1e3)
+
+
+def watch_sweeps(module, fleets: list, walls: list, last: dict):
+    """Wrap ``module.run_sweep`` so each sweep's fleet, wall time and last
+    dispatch's counts are kept; returns the original."""
+    import torch
+
+    orig = module.run_sweep
+
+    def watched(sweep, **kw):
+        def on_fleet(f):
+            fleets.append(f)
+            dispatch = f.run_epochs_async
+
+            def recorded(k, counts=None, **dkw):
+                last.update(k=k, counts=counts)
+                return dispatch(k, counts=counts, **dkw)
+
+            f.run_epochs_async = recorded
+
+        t0 = time.perf_counter()
+        res = orig(sweep, on_fleet=on_fleet, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return res
+
+    module.run_sweep = watched
+    return orig
+
+
+def autotune_search(torch, np):
+    """Phase 14a: the CLI's default offline search on the card (thrash,
+    65,536 pages x 96 epochs, fast 8,192, queue 4,096, policy_chunk 8,
+    population 8, generations 4, elites 2, seed 0, pipelined): wall time a
+    generation, machine-epochs/s, the fleet epoch split, one profiled
+    chunk, peak memory, the winner against the default."""
+    from repro_torch.core.simulator import ColocationSim
+    from repro_torch.kernels import ops
+    from repro_torch.launch import hillclimb
+
+    geom = hillclimb.family_geometry(AT_FAMILY, n_pages=AT_PAGES, n_epochs=AT_EPOCHS)
+    check(dataclasses.astuple(geom) == (AT_PAGES, AT_EPOCHS, AT_PAGES // 8, AT_PAGES // 16, 8, 8),
+          f"geometry {geom}")
+    fleets, walls, last, acc = [], [], {}, {}
+    saved = {n: getattr(ColocationSim, n) for n in ("_arrays", "_chunk_prepare", "_chunk_record")}
+    time_methods(ColocationSim, tuple(saved), acc, "simulators")
+    orig = watch_sweeps(hillclimb, fleets, walls, last)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        tuner = hillclimb.PolicyAutotuner(AT_FAMILY, geom, population=AT_POPULATION,
+                                          generations=AT_GENERATIONS, elites=AT_ELITES,
+                                          seed=AT_SEED)
+        check(tuner.device.type == "cuda", f"phase 14 runs on the card: {tuner.device}")
+        t0 = time.perf_counter()
+        result = tuner.search()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        hillclimb.run_sweep = orig
+        for n, fn in saved.items():
+            setattr(ColocationSim, n, fn)
+    launches = ops.launch_counts()
+    check(not result.interrupted and len(result.trajectory) == AT_GENERATIONS,
+          "the search ran every generation")
+    check(all(f.device.type == "cuda" for f in fleets), "every generation's fleet is on the card")
+    w, ref = result.winner, result.ref
+    check(w["agg"] >= ref["agg"] * (1 - AT_REL_EPS) and w["ls_p99"] <= ref["ls_p99"] * (1 + AT_REL_EPS),
+          f"the winner weakly dominates the default: {w['agg']} / {ref['agg']}, "
+          f"{w['ls_p99']} / {ref['ls_p99']}")
+    fleet_epochs = AT_GENERATIONS * geom.n_epochs
+    out = dict(family=AT_FAMILY, pages=geom.n_pages, epochs=geom.n_epochs,
+               population=AT_POPULATION, generations=AT_GENERATIONS, wall_s=wall_s,
+               generation_wall_s=";".join(f"{s:.3f}" for s in walls),
+               machine_epochs_per_s=AT_POPULATION * fleet_epochs / wall_s,
+               fleet_epoch_ms=sum(walls) / fleet_epochs * 1e3,
+               **fleet_split(fleets, fleet_epochs, acc.get("simulators", 0.0)),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               dispatches=sum(f.upload_stats["dispatches"] for f in fleets))
+    # the last generation's last chunk once more, under the profiler
+    out.update(device_busy(torch, lambda: fleets[-1].run_epochs(
+        last["k"], counts=last["counts"], trim_stats=True), last["k"]))
+    winner = dict(generation=w["generation"], index=w["index"], score=w["score"],
+                  default_agg=ref["agg"], default_ls_p99_us=ref["ls_p99"] * 1e6,
+                  winner_agg=w["agg"], winner_ls_p99_us=w["ls_p99"] * 1e6,
+                  agg_pct=100 * (w["agg"] / ref["agg"] - 1),
+                  **{f"knob_{k}": v for k, v in w["resolved"].items()})
+    return out, winner, launches
+
+
+def profile_replay(torch, np, family: str, name: str) -> dict:
+    """Phase 14b: one committed profile against the paper defaults at its
+    own geometry, a two-point sweep on the card (the loop of
+    benchmarks/autotune_bench.py:86-133); the claim printed as found."""
+    from repro_torch.configs.tuned import load_profile
+    from repro_torch.core.scenario import ScenarioSweep, SweepPoint, run_sweep
+    from repro_torch.launch import hillclimb
+
+    prof = load_profile(name)
+    g, p = prof["geometry"], prof["params"]
+    geom = hillclimb.TunerGeometry(
+        n_pages=int(g["n_pages"]), n_epochs=int(g["n_epochs"]), fast=int(g["fast_capacity"]),
+        queue_size=int(g["queue_size"]), max_tenants=int(g["max_tenants"]),
+        policy_chunk=int(g["policy_chunk"]))
+    scenario = hillclimb.family_scenario(family, geom)
+    seed = int(prof["search"].get("eval_seed", 0))
+    default_kw = hillclimb.resolve_knobs(hillclimb.default_candidate(), geom)
+    points = (
+        SweepPoint("default", seed=seed, **default_kw),
+        SweepPoint("tuned", seed=seed, migration_budget=int(p["migration_budget"]),
+                   sample_period=int(p["sample_period"]), ewma_lambda=float(p["ewma_lambda"]),
+                   hysteresis=float(p["hysteresis"]), num_bins=int(p["num_bins"]),
+                   alloc_headroom=int(p["alloc_headroom"])),
+    )
+    t0 = time.perf_counter()
+    res = run_sweep(ScenarioSweep(scenario=scenario, points=points), num_pages=geom.n_pages,
+                    fast_capacity=geom.fast, migration_budget=default_kw["migration_budget"],
+                    max_tenants=geom.max_tenants, queue_size=geom.queue_size,
+                    policy_chunk=geom.policy_chunk)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    a, b = prof["search"]["scored_window"]
+    ls = hillclimb.ls_tenants(scenario)
+    d_agg, d_p99 = hillclimb.measure_history(res.results["default"].history, (a, b), ls)
+    t_agg, t_p99 = hillclimb.measure_history(res.results["tuned"].history, (a, b), ls)
+    check(all(len(r.history) == geom.n_epochs for r in res.results.values()),
+          f"{name}: every epoch recorded")
+    return dict(scenario=scenario.name, pages=geom.n_pages, epochs=geom.n_epochs,
+                window=f"{a}-{b}", wall_s=wall_s, default_agg=d_agg,
+                default_ls_p99_us=d_p99 * 1e6, tuned_agg=t_agg, tuned_ls_p99_us=t_p99 * 1e6,
+                agg_pct=100 * (t_agg / max(d_agg, 1e-12) - 1),
+                ls_p99_pct=100 * (t_p99 / max(d_p99, 1e-12) - 1),
+                claim_holds=bool(t_agg >= d_agg * (1 - AT_REL_EPS)
+                                 and t_p99 <= d_p99 * (1 + AT_REL_EPS)))
+
+
+def state_bytes(np, st) -> dict:
+    return {k: v.tobytes() for k, v in state_leaves(np, st)}
+
+
+def online_legs(torch, np):
+    """Phase 14c: the skewshift probe at 16,384 pages x 64 epochs (fast
+    P/8, the plan buffer fast/2, budget fast/8, policy_chunk 2) with default
+    params and with an ``OnlineTuner`` on SkewChange; recovery epochs of
+    the shifted tenant, the retunes, ms a burst; the records before the
+    first retune equal between the legs, and the live manager's state and
+    generator bit-equal across every burst."""
+    from repro_torch.core.manager import CentralManager
+    from repro_torch.core.scenario import SkewChange, recovery_epochs
+    from repro_torch.core.simulator import OPTANE, ColocationSim
+    from repro_torch.core.types import state_to_numpy
+    from repro_torch.launch import hillclimb
+
+    fast = ON_PAGES // 8
+    shift = ON_EPOCHS // 2
+    scenario = hillclimb.skewshift_scenario(ON_PAGES, ON_EPOCHS)
+
+    def make_sim():
+        mgr = CentralManager(num_pages=ON_PAGES, fast_capacity=fast, migration_budget=fast // 2,
+                             max_tenants=8)
+        mgr.params = mgr.params._replace(migration_budget=max(fast // 8, 8))
+        return ColocationSim(mgr, OPTANE, seed=ON_SEED, policy_chunk=ON_CHUNK)
+
+    sim_d = make_sim()
+    t0 = time.perf_counter()
+    res_d = sim_d.run_scenario(scenario)
+    torch.cuda.synchronize()
+    default_s = time.perf_counter() - t0
+    sim_o = make_sim()
+    tuner = hillclimb.OnlineTuner(sim_o, seed=ON_SEED, triggers=(SkewChange,))
+    check(tuner.device.type == "cuda" and sim_o.backend.device.type == "cuda",
+          "phase 14 online legs run on the card")
+    bursts = []
+    burst = tuner._burst
+
+    def checked_burst(cands, rng):
+        m = sim_o.backend
+        m._ensure_segs()
+        before = state_bytes(np, state_to_numpy(m._state))
+        gen = m._state.rng.get_state().clone()
+        queue = m.queue_counters()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = burst(cands, rng)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        same = (state_bytes(np, state_to_numpy(m._state)) == before
+                and torch.equal(m._state.rng.get_state(), gen) and m.queue_counters() == queue)
+        bursts.append((same, ms))
+        return out
+
+    tuner._burst = checked_burst
+    t0 = time.perf_counter()
+    res_o = sim_o.run_scenario(scenario, on_event=tuner.on_event)
+    torch.cuda.synchronize()
+    online_s = time.perf_counter() - t0
+    rec_d, base_d = recovery_epochs(res_d.history, shift, tenant="kvs")
+    rec_o, base_o = recovery_epochs(res_o.history, shift, tenant="kvs")
+    first = tuner.retunes[0]["epoch"] if tuner.retunes else ON_EPOCHS
+    before_equal = text_of(res_d.history[:first]) == text_of(res_o.history[:first])
+    check(tuner.retunes and len(bursts) == len(tuner.retunes), f"retunes {len(tuner.retunes)}")
+    check(before_equal, f"the legs' records before the first retune (epoch {first}) are equal")
+    check(all(same for same, _ in bursts), "the live manager's state, queue and generator "
+          "are bit-equal across every burst")
+    out = dict(pages=ON_PAGES, epochs=ON_EPOCHS, shift_epoch=shift, default_s=default_s,
+               online_s=online_s, pre_shift_throughput=base_d,
+               recovery_epochs_default=rec_d, recovery_epochs_online=rec_o,
+               claim_fewer_epochs=rec_o < rec_d, records_before_retune_equal=before_equal,
+               bursts=len(bursts), burst_ms=";".join(f"{ms:.1f}" for _, ms in bursts),
+               live_state_unchanged=all(same for same, _ in bursts),
+               steady_agg_default=res_d.steady_state.agg_throughput,
+               steady_agg_online=res_o.steady_state.agg_throughput)
+    retunes = [{k: r[k] for k in ("epoch", "trigger", "chosen", "budget", "sample_period")}
+               for r in tuner.retunes]
+    return out, retunes
+
+
+def autotune_64k(torch, np):
+    """Phase 14: the search, the three profile replays, the online legs;
+    launches counted over the whole phase."""
+    from repro_torch.kernels import ops
+
+    search, winner, launches = autotune_search(torch, np)
+    free_device(torch)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    replays = {name: profile_replay(torch, np, fam, name) for fam, name in AT_PROFILES}
+    online, retunes = online_legs(torch, np)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    launches = {k: launches[k] + after[k] for k in launches}
+    check(not any(launches.values()), f"the tuner's path launches no kernel: {launches}")
+    return search, winner, replays, online, retunes, launches
+
+
+def exact_seams(hillclimb, moved: list):
+    """tests/test_torch_autotune.py's seams: ``sample_period`` pinned to 1
+    and every sweep at 4 KiB pages and 40 us epochs (exact counts inside
+    the heat bins); returns an undo."""
+    from repro_torch.core.simulator import OPTANE
+
+    space, orig = hillclimb.SEARCH_SPACE, hillclimb.run_sweep
+    pinned = dict(space)
+    pinned["sample_period"] = dict(kind="int", lo=1, hi=1, log=True, default=1)
+
+    def wrapped(sweep, **kw):
+        res = orig(sweep, machine=dataclasses.replace(OPTANE, page_bytes=4096),
+                   epoch_seconds=4e-5, **kw)
+        moved.append(max(sum(r.migrated_pages for r in v.history) for v in res.results.values()))
+        return res
+
+    hillclimb.SEARCH_SPACE, hillclimb.run_sweep = pinned, wrapped
+
+    def undo():
+        hillclimb.SEARCH_SPACE, hillclimb.run_sweep = space, orig
+
+    return undo
+
+
+def tuner_gpu_vs_cpu(torch, np) -> dict:
+    """Phase 15: the exact search on the card and on the CPU, trajectory
+    and winner equal; then sampled on the card, the same seed twice and a
+    search stopped at ``stop_after`` and resumed, each equal to the first."""
+    import tempfile
+
+    from repro_torch.launch import hillclimb
+
+    geom = hillclimb.TunerGeometry(n_pages=TG_PAGES, n_epochs=TG_EPOCHS, fast=TG_FAST,
+                                   policy_chunk=TG_CHUNK)
+
+    def tuner(device, **kw):
+        return hillclimb.PolicyAutotuner("skewshift", geom, population=TG_POPULATION,
+                                         generations=TG_GENERATIONS, seed=TG_SEED,
+                                         device=device, **kw)
+
+    moved: list = []
+    undo = exact_seams(hillclimb, moved)
+    try:
+        times = {}
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            runs[dev] = tuner(dev).search()
+            times[dev] = time.perf_counter() - t0
+    finally:
+        undo()
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    exact_equal = gpu.trajectory == cpu.trajectory and gpu.winner == cpu.winner \
+        and gpu.ref == cpu.ref
+    check(exact_equal, "the exact search's trajectory and winner equal on the card and the CPU")
+    check(max(moved) > 0, f"a candidate migrated pages in the exact search: {moved}")
+
+    t0 = time.perf_counter()
+    first = tuner("cuda").search()
+    sampled_s = time.perf_counter() - t0
+    again = tuner("cuda").search()
+    same_seed = first.trajectory == again.trajectory and first.winner == again.winner
+    check(same_seed, "the same seed gives the same trajectory on the card")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as out:
+        partial = tuner("cuda", out_dir=out, checkpoint_every=4).search(stop_after=5)
+        resumed = tuner("cuda", out_dir=out, checkpoint_every=4).search(resume=True)
+    check(partial.interrupted and not resumed.interrupted, "stopped, then resumed to the end")
+    resume_equal = resumed.trajectory == first.trajectory and resumed.winner == first.winner
+    check(resume_equal, "the resumed search equals the uninterrupted one on the card")
+    return dict(pages=TG_PAGES, epochs=TG_EPOCHS, population=TG_POPULATION,
+                generations=TG_GENERATIONS, exact_gpu_s=times["cuda"], exact_cpu_s=times["cpu"],
+                exact_trajectory_equal=exact_equal, exact_max_migrated=max(moved),
+                sampled_search_s=sampled_s, same_seed_equal=same_seed,
+                resume_equal=resume_equal, winner_generation=first.winner["generation"],
+                winner_index=first.winner["index"])
+
+
 # --------------------------------------------------------------------- main
 def shape_entry(k: dict, path: str, launches) -> dict:
     """One measured shape of a kernel for the ``kernels`` line."""
@@ -2235,6 +2561,29 @@ def main() -> int:
     check(not any(sc13_launches.values()), f"the fleet path launches no kernel: {sc13_launches}")
     free_device(torch)
 
+    # phase 14, autotune-64k: the tuner's search, the profile replays, online
+    at_search, at_winner, at_replays, at_online, at_retunes, at_launches = autotune_64k(torch, np)
+    emit("phase14 autotune-64k search", **at_search)
+    emit("phase14 winner", **at_winner)
+    for name, row in at_replays.items():
+        emit(f"phase14 replay {name} (as found, not gated)", **row)
+    emit("phase14 online", **at_online)
+    for r in at_retunes:
+        emit("phase14 retune", **r)
+    emit("phase14 launches", **at_launches)
+    free_device(torch)
+
+    # phase 15, tuner-gpu-vs-cpu: the exact search on the card and the CPU
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    tg = tuner_gpu_vs_cpu(torch, np)
+    torch.cuda.synchronize()
+    tg_launches = ops.launch_counts()
+    emit("phase15 tuner-gpu-vs-cpu", **tg)
+    emit("phase15 launches", **tg_launches)
+    check(not any(tg_launches.values()), f"the tuner's path launches no kernel: {tg_launches}")
+    free_device(torch)
+
     sources = {
         "page_move": ("src/repro_torch/kernels/csrc/page_copy.cu",
                       "src/repro/kernels/page_copy.py:34"),
@@ -2295,10 +2644,12 @@ def main() -> int:
         shape_entry(attn["flash_attention bfloat16 qwen2moe S512"], "serve-qwen2moe S512", None),
         {"path": "coloc-legs", "launches": cl_launches["flash_attention"]},
     ]
-    for row in rows:  # the fleet paths (phases 12-13) launch none of the kernels
+    for row in rows:  # the fleet paths (phases 12-15) launch none of the kernels
         row.setdefault("shapes", []).extend([
             {"path": "sweep-64k", "launches": sc12_launches[row["name"]]},
             {"path": "fleet-gpu-vs-cpu", "launches": sc13_launches[row["name"]]},
+            {"path": "autotune-64k", "launches": at_launches[row["name"]]},
+            {"path": "tuner-gpu-vs-cpu", "launches": tg_launches[row["name"]]},
         ])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

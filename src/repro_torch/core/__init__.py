@@ -2,6 +2,7 @@
 central manager and the page data plane; the fleet of managers advanced by
 one batched tick; the colocation simulator, the placement baselines and the
 dynamic-scenario engine that drive them, and its sweep over a fleet."""
+from repro_torch.core.policy import apply_plan, policy_epoch
 from repro_torch.core.baselines import AutoNUMALike, HeMemStatic, TwoLM
 from repro_torch.core.fleet import (
     DispatchError,
@@ -19,6 +20,7 @@ from repro_torch.core.scenario import (
     SweepPoint,
     SweepResult,
     adversarial_scenario,
+    recovery_epochs,
     run_scenario,
     run_sweep,
     scale_colocation,
@@ -68,7 +70,10 @@ __all__ = [
     "TwoLM",
     "WorkloadSpec",
     "adversarial_scenario",
+    "apply_plan",
     "fleet_multi_epoch",
+    "policy_epoch",
+    "recovery_epochs",
     "run_scenario",
     "run_sweep",
     "scale_colocation",

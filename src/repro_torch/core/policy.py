@@ -18,6 +18,8 @@ Entry points:
   * ``epoch_step``  — sample -> policy -> apply on a ``PolicyState``.
   * ``multi_epoch`` — k epochs as a Python loop over the same body, with
     per-epoch telemetry stacked on a leading k axis.
+  * ``policy_epoch`` / ``apply_plan`` — the bare policy on (pages, tenants)
+    and a sampled count vector, then the plan committed to the metadata.
 
 Bit-parity notes (the reference is the JAX package's ``core/policy.py``):
   * u32 values live in int64 and are masked where the reference wraps;
@@ -398,6 +400,44 @@ def _apply_masks(pages: PageState, promote_mask, demote_mask) -> PageState:
         promote_mask, TIER_FAST, torch.where(demote_mask, TIER_SLOW, pages.tier)
     ).to(torch.int8)
     return pages._replace(tier=tier)
+
+
+def policy_epoch(
+    pages: PageState,
+    tenants: TenantState,
+    sampled: torch.Tensor,  # u32 values [P]: sampled accesses this epoch
+    params: PolicyParams,
+    *,
+    max_tenants: int,
+    plan_size: int,
+    count_clamp: int = COUNT_CLAMP,
+):
+    """Returns (pages', tenants', MigrationPlan, EpochStats). Tiers in
+    ``pages'`` are pre-migration; use :func:`apply_plan` to commit the plan."""
+    sampled = sampled.to(_I64) & MASK32
+    pages, tenants, _pm, _dm, plan, stats = _epoch_core(
+        pages, tenants, sampled, params, max_tenants, plan_size, count_clamp,
+        collect_plan=True,
+    )
+    return pages, tenants, plan, stats
+
+
+def _apply_plan_core(pages: PageState, plan: MigrationPlan) -> PageState:
+    P = pages.tier.shape[0]
+
+    def kept(ids):
+        # -1 padding must not wrap to P-1: it goes to the dropped slot P
+        return torch.where((ids >= 0) & (ids < P), ids.to(_I64), P)
+
+    tier = _set_where(pages.tier, kept(plan.promote), TIER_FAST)
+    tier = _set_where(tier, kept(plan.demote), TIER_SLOW)
+    return pages._replace(tier=tier)
+
+
+def apply_plan(pages: PageState, plan: MigrationPlan) -> PageState:
+    """Execute a migration plan on the metadata (the data movement is the
+    caller's: a page pool and the ``page_move`` kernel)."""
+    return _apply_plan_core(pages, plan)
 
 
 # --------------------------------------------------------------------------

@@ -116,6 +116,16 @@ class PolicyParams(NamedTuple):
     promote_admission: int = -1
     demote_cooldown: int = 0
 
+    @classmethod
+    def from_profile(cls, name: str, **overrides) -> "PolicyParams":
+        """Load a committed tuned profile from ``repro_torch.configs.tuned``
+        (e.g. ``"thrash_4k"``): every field in the manager's form, float
+        knobs rounded to float32; keyword ``overrides`` replace fields."""
+        # lazy import: configs.tuned needs PolicyParams itself
+        from repro_torch.configs.tuned import params_from_profile
+
+        return params_from_profile(name, **overrides)
+
 
 class TenantState(NamedTuple):
     """Per-tenant QoS state. Tensors of length max_tenants."""

@@ -436,3 +436,47 @@ def test_cuda_fleet_matches_machines_alone(cuda, exact, queue):
             for a, b in zip(getattr(fs, part), getattr(ws, part)):
                 assert np.asarray(a).tobytes() == np.asarray(b).tobytes(), (s, part)
         assert fleet.machines[s].queue_counters() == alone.queue_counters()
+
+
+@pytest.mark.cuda
+def test_cuda_autotuner_matches_cpu(cuda, monkeypatch):
+    """The exact tiny search (skewshift, 1,024 pages x 12 epochs, fast 128,
+    population 4, generations 2, seed 7, sample_period pinned to 1, 4 KiB
+    pages, 40 us epochs) on the card equals the same search on the CPU:
+    trajectory and winner, floats exact; then an online burst on the card
+    leaves the live manager's state and generator as they were."""
+    import dataclasses
+
+    from repro_torch.core.manager import CentralManager
+    from repro_torch.core.simulator import OPTANE, ColocationSim
+    from repro_torch.core.types import state_to_numpy
+    from repro_torch.launch import hillclimb as th
+
+    space = dict(th.SEARCH_SPACE)
+    space["sample_period"] = dict(kind="int", lo=1, hi=1, log=True, default=1)
+    monkeypatch.setattr(th, "SEARCH_SPACE", space)
+    orig = th.run_sweep
+    monkeypatch.setattr(th, "run_sweep", lambda sweep, **kw: orig(
+        sweep, machine=dataclasses.replace(OPTANE, page_bytes=4096), epoch_seconds=4e-5, **kw))
+    geom = th.TunerGeometry(n_pages=1024, n_epochs=12, fast=128, policy_chunk=4)
+    runs = {dev: th.PolicyAutotuner("skewshift", geom, population=4, generations=2, seed=7,
+                                    device=dev).search() for dev in (cuda, "cpu")}
+    gpu, cpu = runs[cuda], runs["cpu"]
+    assert gpu.trajectory == cpu.trajectory
+    assert gpu.winner == cpu.winner and gpu.ref == cpu.ref
+
+    mgr = CentralManager(num_pages=512, fast_capacity=64, migration_budget=32, max_tenants=8,
+                         queue_size=32, device=cuda)
+    mgr.params = mgr.params._replace(migration_budget=8)
+    sim = ColocationSim(mgr, OPTANE, seed=4, policy_chunk=2)
+    sim.run_scenario(th.skewshift_scenario(512, 4, shift_epoch=2))
+    mgr._ensure_segs()
+    before = state_to_numpy(mgr._state)
+    gen_before = mgr._state.rng.get_state().clone()
+    tuner = th.OnlineTuner(sim, seed=1, device=cuda)
+    tuner._burst(tuner._candidate_params(np.random.default_rng(0)), np.random.default_rng(1))
+    after = state_to_numpy(mgr._state)
+    for part in ("pages", "tenants", "queue", "segs"):
+        for f, a in getattr(before, part)._asdict().items():
+            assert np.array_equal(a, getattr(getattr(after, part), f)), (part, f)
+    assert torch.equal(mgr._state.rng.get_state(), gen_before)

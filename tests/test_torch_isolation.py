@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, runs on
-the card unless asked for the CPU, and has no silent fallback. This file
+"""The port stands alone: it imports neither JAX nor the JAX package nor the
+reference's ``benchmarks`` (which imports the JAX package), runs on the
+card unless asked for the CPU, and has no silent fallback. This file
 imports no JAX either, so its ``cuda`` test runs on a machine with only
 PyTorch."""
 import ast
@@ -32,7 +33,7 @@ def _imported_roots(path: Path):
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_and_no_reference_imports(path):
     roots = set(_imported_roots(path))
-    assert not roots & {"jax", "jaxlib", "repro"}, roots
+    assert not roots & {"jax", "jaxlib", "repro", "benchmarks"}, roots
 
 
 def test_manager_defaults_to_the_card(monkeypatch):
@@ -68,6 +69,36 @@ def test_serving_defaults_to_the_card(monkeypatch):
     eng = ServingEngine(cfg, get_model(cfg).init(seed=0, device="cpu"), m,
                         TieredPagedKV(cfg, 4, 12, page_tokens=4, device="cpu"))
     assert eng.device.type == "cpu"
+
+
+def test_autotuner_defaults_to_the_card(monkeypatch):
+    """The offline search, the online tuner (whose burst builds its clones on
+    the tuner's device) and the CLI run on the card unless asked for the
+    CPU; without a GPU the default raises."""
+    from repro_torch.core.manager import CentralManager
+    from repro_torch.core.simulator import OPTANE, ColocationSim
+    from repro_torch.launch import hillclimb
+
+    geom = hillclimb.TunerGeometry(n_pages=256, n_epochs=4, fast=32, policy_chunk=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hillclimb.PolicyAutotuner("skewshift", geom, population=2, generations=1, elites=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hillclimb.main(["--scenario", "skewshift", "--pages", "256", "--epochs", "4"])
+    sim = ColocationSim(CentralManager(num_pages=256, fast_capacity=32, migration_budget=8,
+                                       max_tenants=8, device="cpu"), OPTANE, policy_chunk=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hillclimb.OnlineTuner(sim)
+    sim.run_scenario(hillclimb.skewshift_scenario(256, 2))
+    tuner = hillclimb.OnlineTuner(sim, device="cpu")
+    tuner.retune()
+    assert tuner.retunes and tuner.device.type == "cpu"
+    res = hillclimb.PolicyAutotuner("skewshift", geom, population=2, generations=1, elites=1,
+                                    device="cpu").search()
+    assert not res.interrupted and res.winner is not None
+    assert hillclimb.main(["--scenario", "skewshift", "--pages", "256", "--epochs", "4",
+                           "--population", "2", "--generations", "1", "--elites", "1",
+                           "--device", "cpu"]) == 0
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():
