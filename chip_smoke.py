@@ -108,8 +108,34 @@ Phases, one line of numbers each:
      pages, 40 us epochs) on the card and the CPU, trajectory and winner
      equal; sampled on the card, the same seed twice and a search stopped
      at ``stop_after`` and resumed, equal to the first.
-Phases 12-15 launch none of the five kernels (fleet machines have no page
-pool) and run with ``vmap``'s batching-rule fallback warning as an error.
+ 16. ``train-qwen25-3b``: qwen2.5-3b at full width and depth (36 layers, d
+     2,048, 16 heads over 2 KV heads, 3,085,938,688 bf16 parameters from a
+     seed, float32 AdamW moments), ``make_train_step(remat="block",
+     microbatch=4)`` on batches of 8 x 4,096 tokens from ``SyntheticTokens``
+     through ``PrefetchIterator``: one warm-up and 4 timed steps on batch 0,
+     each split into host (the batch's copy), forward + backward and the
+     optimizer; tokens/s, the model-FLOPs share of 989 TFLOP/s, one step
+     profiled, peak memory; loss and grad norm finite, the loss falls, peak
+     under 80 GiB;
+ 17. ``lm-decode``: the same model's prefill of 8 prompts of 1,024 tokens
+     (``flash_attention``, counted) into a 1,152-position ``KVCache``, 128
+     greedy ``decode_step`` calls under the deferred commit and the eager
+     branch fed the same tokens: ms a step, tokens/s, one step's device busy
+     time against its bytes bound; the branches' logits within bf16's
+     tolerance and their greedy tokens equal for 16 steps; the prompt and
+     the first 8 generated tokens, prefilled, predict the 9th; then
+     ``flash_attention`` at this prefill's shape against its plain version;
+ 18. ``train-gpu-vs-cpu``: 6 smoke train steps (float32) from one state on
+     the card and on the CPU (losses within 1e-4 relative, parameters within
+     2e-4); under ``torch.use_deterministic_algorithms(True)``, full width
+     cut to 2 layers: 3 steps, ``Checkpointer`` save and restore, 3 steps,
+     bit-equal with 6 straight; ``launch.train.main`` on the card, 12 steps
+     straight and resumed from step 6, bit-equal.
+Phases 12-16 and 18 launch none of the five kernels (fleet machines have no
+page pool; the train step's attention is ``blocked_attention``, which
+autograd differentiates); phase 17 launches ``flash_attention`` only, 36
+times a prefill. Phases 12-15 run with ``vmap``'s batching-rule fallback
+warning as an error.
 Phase 2 also holds ``paged_attention`` and ``flash_attention`` against their
 plain versions, in float32 and bfloat16, at phase 5's shapes (flash at both
 tenants' prompt lengths, 1,024 and 512) and in bfloat16 at phase 7's (16
@@ -130,6 +156,11 @@ import subprocess
 import sys
 import time
 import warnings
+
+# phase 18 runs with torch.use_deterministic_algorithms(True), which needs
+# cuBLAS's fixed workspace; the variable is read when CUDA starts, so it is
+# set before anything touches the card
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 bandwidth
@@ -728,7 +759,11 @@ def profile_epochs(torch, m, rates, gen, n: int = 2):
 
 def device_busy(torch, fn, n: int):
     """Device busy time per epoch of ``fn`` (which runs ``n`` epochs) under
-    the profiler, against its wall time, and the top kernels."""
+    the profiler, against its wall time, and the top kernels. Read from the
+    profiler's raw events (each device kernel, copy and fill with its
+    duration): a train step's ~10^5 kernels would take ``key_averages``
+    tens of seconds to build into its event tree."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -737,10 +772,13 @@ def device_busy(torch, fn, n: int):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / n * 1e3
-    rows = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in rows) / n / 1e3
-    top = ";".join(f"{e.key[:40].replace(' ', '_')}:{e.self_device_time_total / n / 1e3:.3f}"
-                   for e in rows[:6])
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1])
+    busy_ms = sum(by_name.values()) / n / 1e6
+    top = ";".join(f"{k[:40].replace(' ', '_')}:{v / n / 1e6:.3f}" for k, v in rows[:6])
     return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
                 device_kernels=len(rows), top_device_ms=top)
@@ -830,6 +868,50 @@ def paged_bytes(np, tables, lens, itemsize: int, nh: int, nkv: int) -> int:
     return kv + 2 * PA_B * nh * PA_DH * itemsize + 4 * t.size + 4 * n.size
 
 
+def flash_case(torch, device, dtype, B: int, nh: int, nkv: int, S: int) -> dict:
+    """``flash_attention`` against its plain version on q [B, nh, S, 128],
+    k/v [B, nkv, S, 128], causal, with its times, SDPA's and its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    dname = str(dtype).split(".")[-1]
+    tol = ATTN_TOL[dname]
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 3)
+    qf = torch.randn((B, nh, S, PA_DH), generator=g, device=device).to(dtype)
+    kf = torch.randn((B, nkv, S, PA_DH), generator=g, device=device).to(dtype)
+    vf = torch.randn((B, nkv, S, PA_DH), generator=g, device=device).to(dtype)
+    got = ops.flash_attention(qf, kf, vf, causal=True)
+    want = ref.flash_attention_ref(qf, kf, vf, causal=True)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)),
+          f"flash_attention {dname} B {B} heads {nh}/{nkv} S {S} within {tol} of its plain "
+          f"version (max err {err})")
+    flops = B * 4 * nh * PA_DH * S * (S + 1) // 2  # the causal pairs only
+    nbytes = B * (2 * nh + 2 * nkv) * S * PA_DH * qf.element_size()
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    by_ops = flops / peak * 1e3
+
+    def library():
+        return F.scaled_dot_product_attention(qf, kf, vf, is_causal=True, enable_gqa=True)
+
+    return dict(
+        max_abs_err=err, tol=tol,
+        ms=time_cuda(torch, lambda: ops.flash_attention(qf, kf, vf, causal=True)),
+        device_ms=device_ms(torch, lambda: ops.flash_attention(qf, kf, vf, causal=True)),
+        host_ms=host_ms(torch, lambda: ops.flash_attention(qf, kf, vf, causal=True)),
+        plain_ms=time_cuda(torch, lambda: ref.flash_attention_ref(qf, kf, vf, causal=True)),
+        library_ms=time_cuda(torch, library),
+        library_device_ms=device_ms(torch, library),
+        bound_ms=max(by_ops, bound_ms(nbytes)),
+        bound_by="operations" if by_ops >= bound_ms(nbytes) else "bytes",
+        library="sdpa(is_causal, enable_gqa)",
+        shape=f"q[{B},{nh},{S},{PA_DH}]{dname}_kv[{B},{nkv},{S},{PA_DH}]",
+    )
+
+
 def attention_checks(torch, np, device, nh=PA_NH, nkv=PA_NKV,
                      dtypes=("float32", "bfloat16"), tag=""):
     """``paged_attention`` and ``flash_attention`` against their plain
@@ -879,42 +961,8 @@ def attention_checks(torch, np, device, nh=PA_NH, nkv=PA_NKV,
         # the be tenant's 1,024-token prompt (the row of the kernels line),
         # then the ls tenant's 512
         for S in FA_S:
-            g = torch.Generator(device=device)
-            g.manual_seed(SEED + 3)
-            qf = torch.randn((1, nh, S, PA_DH), generator=g, device=device).to(dtype)
-            kf = torch.randn((1, nkv, S, PA_DH), generator=g, device=device).to(dtype)
-            vf = torch.randn((1, nkv, S, PA_DH), generator=g, device=device).to(dtype)
-            got = ops.flash_attention(qf, kf, vf, causal=True)
-            want = ref.flash_attention_ref(qf, kf, vf, causal=True)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            check(bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)),
-                  f"flash_attention {dname} S {S} within {tol} of its plain version "
-                  f"(max err {err})")
-            flops = 4 * nh * PA_DH * S * (S + 1) // 2  # the causal pairs only
-            nbytes = (2 * nh + 2 * nkv) * S * PA_DH * qf.element_size()
-            peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-            by_ops = flops / peak * 1e3
-
-            def library():
-                return F.scaled_dot_product_attention(qf, kf, vf, is_causal=True,
-                                                      enable_gqa=True)
-
             name = f"flash_attention {dname}{tag}" + ("" if S == FA_S[0] else f" S{S}")
-            out[name] = dict(
-                max_abs_err=err, tol=tol,
-                ms=time_cuda(torch, lambda: ops.flash_attention(qf, kf, vf, causal=True)),
-                device_ms=device_ms(torch, lambda: ops.flash_attention(qf, kf, vf, causal=True)),
-                host_ms=host_ms(torch, lambda: ops.flash_attention(qf, kf, vf, causal=True)),
-                plain_ms=time_cuda(
-                    torch, lambda: ref.flash_attention_ref(qf, kf, vf, causal=True)),
-                library_ms=time_cuda(torch, library),
-                library_device_ms=device_ms(torch, library),
-                bound_ms=max(by_ops, bound_ms(nbytes)),
-                bound_by="operations" if by_ops >= bound_ms(nbytes) else "bytes",
-                library="sdpa(is_causal, enable_gqa)",
-                shape=f"q[1,{nh},{S},{PA_DH}]{dname}_kv[1,{nkv},{S},{PA_DH}]",
-            )
+            out[name] = flash_case(torch, device, dtype, 1, nh, nkv, S)
         torch.cuda.empty_cache()
     for name, r in out.items():
         emit(f"phase2 {name}", **{k: (v.replace(" ", "_") if isinstance(v, str) else v)
@@ -2392,6 +2440,351 @@ def tuner_gpu_vs_cpu(torch, np) -> dict:
                 winner_index=first.winner["index"])
 
 
+# ------------------------------------------------------------------ phase 16
+# train-qwen25-3b: qwen2.5-3b at full width and depth on the train_4k cell's
+# 4,096-token rows (src/repro/configs/base.py, LM_SHAPES), 8 rows a step in
+# 4 microbatches, from SyntheticTokens through PrefetchIterator as
+# launch/train.py wires them
+TR_ARCH, TR_BATCH, TR_SEQ, TR_MICRO, TR_TIMED = "qwen2.5-3b", 8, 4096, 4, 4
+TR_PARAMS = 3_085_938_688
+TR_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=100)
+TR_PEAK_GIB = 80.0
+
+
+def train_flops_per_token(cfg, n_params: int, seq: int) -> int:
+    """Model FLOPs a token of a train step: 6 N for the weights' products
+    (forward and backward) and 6 L S nh dh for causal attention's (half the
+    S x S pairs), without remat's second forward."""
+    return 6 * n_params + 6 * cfg.num_layers * seq * cfg.num_heads * cfg.d_head
+
+
+def train_qwen25(torch, np, device):
+    """One warm-up step and TR_TIMED timed steps on batch 0, each split into
+    the batch's copy to the card (host), forward + backward and the
+    optimizer (synchronised at the optimizer's start and end), then one
+    step under the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, PrefetchIterator, SyntheticTokens
+    from repro_torch.launch.train import to_device
+    from repro_torch.training import train_state as ts
+    from repro_torch.training.optimizer import AdamWConfig, named_leaves
+
+    cfg = get_config(TR_ARCH)
+    t0 = time.perf_counter()
+    state = ts.init_train_state(cfg, SEED, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for _, p in named_leaves(state.params))
+    check(n_params == TR_PARAMS, f"{TR_ARCH} has {TR_PARAMS} parameters ({n_params})")
+    step = ts.make_train_step(cfg, AdamWConfig(**TR_OPT), remat="block", microbatch=TR_MICRO)
+    it = PrefetchIterator(SyntheticTokens(DataConfig(cfg.vocab_size, TR_SEQ, TR_BATCH,
+                                                     seed=17)))
+    try:
+        data_step, host_batch = next(it)
+    finally:
+        it.close()
+    check(data_step == 0, "the prefetch iterator starts at batch 0")
+
+    marks = {}
+    update = ts.adamw_update
+
+    def timed_update(*args, **kw):
+        torch.cuda.synchronize()
+        marks["opt0"] = time.perf_counter()
+        out = update(*args, **kw)
+        torch.cuda.synchronize()
+        marks["opt1"] = time.perf_counter()
+        return out
+
+    ts.adamw_update = timed_update
+    rows = []
+    try:
+        for i in range(1 + TR_TIMED):
+            t_h = time.perf_counter()
+            batch = to_device(host_batch, device)
+            torch.cuda.synchronize()
+            t_s = time.perf_counter()
+            state, m = step(state, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            t_e = time.perf_counter()
+            rows.append(dict(step_ms=(t_e - t_h) * 1e3, host_ms=(t_s - t_h) * 1e3,
+                             fwd_bwd_ms=(marks["opt0"] - t_s) * 1e3,
+                             optimizer_ms=(marks["opt1"] - marks["opt0"]) * 1e3,
+                             loss=loss, grad_norm=gnorm, lr=float(m["lr"])))
+            emit(f"phase16 step {i}" + (" (warm-up)" if i == 0 else ""), **rows[-1])
+        prof = device_busy(torch, lambda: step(state, batch), 1)
+    finally:
+        ts.adamw_update = update
+    timed = rows[1:]
+    step_s = sum(r["step_ms"] for r in timed) / len(timed) / 1e3
+    tok_s = TR_BATCH * TR_SEQ / step_s
+    fpt = train_flops_per_token(cfg, n_params, TR_SEQ)
+    mean = {k: sum(r[k] for r in timed) / len(timed)
+            for k in ("step_ms", "host_ms", "fwd_bwd_ms", "optimizer_ms")}
+    del state, step, batch
+    return dict(params=n_params, batch=TR_BATCH, seq=TR_SEQ, microbatch=TR_MICRO,
+                init_s=init_s, **mean, tokens_per_s=tok_s, flops_per_token=fpt,
+                model_flops_share=fpt * tok_s / BF16_FLOPS,
+                losses=";".join(f"{r['loss']:.5f}" for r in rows),
+                grad_norms=";".join(f"{r['grad_norm']:.4f}" for r in rows),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, **prof)
+
+
+def check_train(np, tr: dict) -> None:
+    losses = [float(x) for x in tr["losses"].split(";")]
+    norms = [float(x) for x in tr["grad_norms"].split(";")]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"finite loss and grad norm at every step: {losses} {norms}")
+    check(losses[-1] < losses[1], f"the loss falls over the timed steps: {losses[1:]}")
+    check(tr["peak_gib"] < TR_PEAK_GIB, f"peak {tr['peak_gib']:.2f} GiB under {TR_PEAK_GIB}")
+
+
+# ------------------------------------------------------------------ phase 17
+# lm-decode: the contiguous-cache decode at the same width and depth: 8
+# prompts of 1,024 tokens, 128 greedy steps in each commit branch
+LD_BATCH, LD_PROMPT, LD_STEPS, LD_AGREE, LD_FORCED = 8, 1024, 128, 16, 8
+LD_MAX = LD_PROMPT + LD_STEPS
+# the two commit branches round differently (the eager one normalises the
+# probabilities before its bf16 cast, the deferred one merges the current
+# token in float32): each step's logits agree within bf16's tolerance
+# (ATTN_TOL) in relative L2 norm, and each branch's greedy token is within
+# that share of the row's largest |logit| of the other branch's top
+LD_TOL = ATTN_TOL["bfloat16"]
+
+
+def decode_bytes(params_bytes: int, cfg, pos: int) -> int:
+    """Bytes one decode step at ``pos`` must move: every weight once, the
+    cache's first ``pos`` keys and values of every layer, the new key and
+    value written, the float32 logits written."""
+    row = cfg.num_kv_heads * cfg.d_head * 2  # one token's key (or value) of a layer, bf16
+    return (params_bytes + 2 * cfg.num_layers * LD_BATCH * (pos + 1) * row
+            + LD_BATCH * cfg.vocab_size * 4)
+
+
+def top2_margin(torch, logits) -> float:
+    """The smallest gap between the two largest logits of any row."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return float((top[:, 0] - top[:, 1]).min())
+
+
+def near_top(torch, logits, tok, tol: float) -> bool:
+    """Every row's logit at ``tok`` is within ``tol`` x the row's largest
+    |logit| of its largest logit: ``tok`` is a greedy choice of these logits
+    up to that tolerance (the logits are bf16 products, so the top of a
+    151,936-way row holds exact ties)."""
+    top = logits.max(dim=-1).values
+    at = logits.gather(1, tok[:, None])[:, 0]
+    return bool((at >= top - tol * logits.abs().max(dim=-1).values).all())
+
+
+def lm_decode(torch, np, device):
+    """Prefill, then 128 greedy steps under the deferred commit; the eager
+    branch is fed the same tokens (so their logits compare at every step)
+    and its own greedy choices are compared with the deferred branch's;
+    then teacher forcing and one profiled step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models import tuning
+    from repro_torch.models.model import get_model
+    from repro_torch.models.transformer import KVCache
+
+    cfg = get_config(TR_ARCH)
+    api = get_model(cfg)
+    params = api.init(seed=SEED, device=device)
+    params_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    prompt = torch.as_tensor(SyntheticTokens(DataConfig(cfg.vocab_size, LD_PROMPT, LD_BATCH,
+                                                        seed=SEED)).batch_at(0)["tokens"],
+                             device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits0, cache0 = api.prefill(params, prompt, LD_MAX)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+
+    def fresh():
+        return KVCache(cache0.k.clone(), cache0.v.clone(), cache0.pos)
+
+    first = torch.argmax(logits0[:, -1], dim=-1)
+    feed, ref_logits, out = [first], [], {}
+    for deferred in (True, False):
+        cache, tok, times, choice, diffs, l2, near = fresh(), first, [], [], [], [], []
+        with tuning.tuned(decode_deferred_commit=deferred):
+            for i in range(LD_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, cache = api.decode(params, tok, cache)
+                nxt = torch.argmax(logits, dim=-1)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                if deferred:
+                    ref_logits.append(logits)
+                    feed.append(nxt)
+                    tok = nxt
+                else:  # the deferred branch's tokens in, its own choice out
+                    choice.append(nxt)
+                    ref = ref_logits[i]
+                    diffs.append(float((logits - ref).abs().max() / ref.abs().max()))
+                    l2.append(float(torch.linalg.vector_norm(logits - ref)
+                                    / torch.linalg.vector_norm(ref)))
+                    near.append(near_top(torch, logits, feed[i + 1], LD_TOL)
+                                and near_top(torch, ref, nxt, LD_TOL))
+                    tok = feed[i + 1]
+        times.sort()
+        name = "deferred" if deferred else "eager"
+        out[name] = dict(step_ms_p50=times[len(times) // 2],
+                         step_ms_p99=times[min(len(times) - 1, int(0.99 * len(times)))],
+                         tokens_per_s=LD_BATCH * LD_STEPS / (sum(times) / 1e3))
+        if not deferred:
+            same = [int((c == f).sum()) for c, f in zip(choice, feed[1:])]
+            out["branches"] = dict(
+                tol=LD_TOL, max_rel_l2_logit_diff=max(l2), first_step_rel_l2=l2[0],
+                max_elem_diff_over_max_logit=max(diffs), first_step_elem_diff=diffs[0],
+                max_logit=float(ref_logits[0].abs().max()),
+                near_top_lead_steps=next((i for i, ok in enumerate(near) if not ok),
+                                         len(near)),
+                argmax_equal_lane_steps=sum(same), lane_steps=LD_BATCH * LD_STEPS,
+                argmax_equal_lane_steps_first16=sum(same[:LD_AGREE]),
+                min_top2_margin_first16=min(top2_margin(torch, x)
+                                            for x in ref_logits[:LD_AGREE]))
+    # teacher forcing: the prompt and the first 8 generated tokens predict the 9th
+    gen = torch.stack(feed, dim=1)  # [B, 1 + LD_STEPS]
+    forced, _ = api.prefill(params, torch.cat([prompt, gen[:, :LD_FORCED]], dim=1),
+                            LD_PROMPT + LD_FORCED)
+    forced_tok = torch.argmax(forced[:, -1], dim=-1)
+    yard = ref_logits[LD_FORCED - 1]  # the decode step that predicted the same token
+    out["teacher_forcing"] = dict(
+        lanes_equal=int((forced_tok == gen[:, LD_FORCED]).sum()), lanes=LD_BATCH,
+        prefill_vs_decode_rel_l2=float(torch.linalg.vector_norm(forced[:, -1] - yard)
+                                       / torch.linalg.vector_norm(yard)),
+        forced_top2_margin=top2_margin(torch, forced[:, -1]),
+        decode_top2_margin=top2_margin(torch, ref_logits[LD_FORCED - 1]))
+    del ref_logits
+
+    cache = fresh()
+    prof = device_busy(torch, lambda: api.decode(params, first, cache), 1)
+    mean_pos = LD_PROMPT + (LD_STEPS - 1) / 2
+    out["deferred"].update(prof, prefill_ms=prefill_ms,
+                           bound_ms=bound_ms(decode_bytes(params_bytes, cfg, int(mean_pos))),
+                           bound_gb=decode_bytes(params_bytes, cfg, int(mean_pos)) / 1e9)
+    del params, cache, cache0
+    return out
+
+
+def check_decode(out: dict) -> None:
+    br, tf = out["branches"], out["teacher_forcing"]
+    check(br["max_rel_l2_logit_diff"] <= LD_TOL,
+          f"the commit branches' logits within {LD_TOL} in relative L2 at every step: {br}")
+    check(br["near_top_lead_steps"] >= LD_AGREE,
+          f"each branch's greedy token is a greedy choice of the other's logits, within "
+          f"bf16's tolerance, for the first {LD_AGREE} steps: {br}")
+    check(tf["lanes_equal"] == LD_BATCH, f"teacher forcing predicts every lane: {tf}")
+
+
+# ------------------------------------------------------------------ phase 18
+# train-gpu-vs-cpu: the smoke train steps on the card and the CPU, then
+# checkpoint / resume bit for bit (full width, 2 layers) and through the CLI
+GC_STEPS, GC_LOSS_RTOL, GC_PARAM_ATOL = 6, 1e-4, 2e-4
+RS_LAYERS, RS_BATCH, RS_SEQ = 2, 2, 512
+
+
+def _leaf_list(state):
+    from repro_torch.training.optimizer import named_leaves
+
+    out = [t for tree in (state.params, state.opt.m, state.opt.v)
+           for _, t in named_leaves(tree)]
+    return out + [state.opt.step]
+
+
+def bit_equal(torch, a, b) -> bool:
+    return all(torch.equal(bits(torch, x), bits(torch, y))
+               for x, y in zip(_leaf_list(a), _leaf_list(b)))
+
+
+def train_gpu_vs_cpu(torch, np, device):
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch import train
+    from repro_torch.training.optimizer import AdamWConfig, named_leaves
+    from repro_torch.training.train_state import init_train_state, make_train_step, state_to
+
+    out = {}
+    # the smoke config in float32, one state on the CPU and its copy on the card
+    check(not torch.backends.cuda.matmul.allow_tf32, "float32 products without TF32")
+    cfg = get_config(TR_ARCH).smoke()
+    cpu = init_train_state(cfg, SEED, device="cpu")
+    gpu = state_to(cpu, device)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2), microbatch=2)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 64, 4, seed=17))
+    rel = 0.0
+    for s in range(GC_STEPS):
+        b = {k: torch.as_tensor(v) for k, v in data.batch_at(s).items()}
+        cpu, mc = step(cpu, b)
+        gpu, mg = step(gpu, {k: v.to(device) for k, v in b.items()})
+        rel = max(rel, abs(float(mg["loss"]) - float(mc["loss"])) / abs(float(mc["loss"])))
+    err = max(float((g.cpu() - c).abs().max())
+              for (_, c), (_, g) in zip(named_leaves(cpu.params), named_leaves(gpu.params)))
+    out["smoke"] = dict(steps=GC_STEPS, loss_max_rel_diff=rel, param_max_abs_diff=err)
+    check(rel <= GC_LOSS_RTOL, f"card and CPU losses within {GC_LOSS_RTOL} relative ({rel})")
+    check(err <= GC_PARAM_ATOL, f"card and CPU parameters within {GC_PARAM_ATOL} ({err})")
+    del cpu, gpu
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    torch.use_deterministic_algorithms(True)
+    try:
+        # full width cut to 2 layers, bf16: 3 steps, save, restore, 3 steps
+        cfg2 = dataclasses.replace(get_config(TR_ARCH), num_layers=RS_LAYERS)
+        step2 = make_train_step(cfg2, AdamWConfig(**TR_OPT), remat="block")
+        data2 = SyntheticTokens(DataConfig(cfg2.vocab_size, RS_SEQ, RS_BATCH, seed=17))
+
+        def run(state, start, n):
+            for s in range(start, start + n):
+                batch = {k: torch.as_tensor(v).to(device)
+                         for k, v in data2.batch_at(s).items()}
+                state, _ = step2(state, batch)
+            return state
+
+        straight = run(init_train_state(cfg2, SEED, device=device), 0, 6)
+        half = run(init_train_state(cfg2, SEED, device=device), 0, 3)
+        ck = Checkpointer(os.path.join(tmp, "resume"))
+        t0 = time.perf_counter()
+        ck.save(3, half, blocking=True)
+        save_s = time.perf_counter() - t0
+        del half
+        t0 = time.perf_counter()
+        resumed, _ = ck.restore(init_train_state(cfg2, SEED + 1, device=device))
+        restore_s = time.perf_counter() - t0
+        resumed = run(resumed, 3, 3)
+        out["resume"] = dict(layers=RS_LAYERS, save_s=save_s, restore_s=restore_s,
+                             checkpoint_gb=sum(t.numel() * t.element_size()
+                                               for t in _leaf_list(straight)) / 1e9,
+                             bit_equal=bit_equal(torch, straight, resumed))
+        del straight, resumed
+        check(out["resume"]["bit_equal"], "3 steps + save + restore + 3 steps == 6 steps")
+
+        # the CLI on the card: 12 steps straight; step 6's checkpoint resumed
+        args = ["--arch", TR_ARCH, "--smoke", "--steps", "12", "--ckpt-every", "6",
+                "--log-every", "6"]
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        straight = train.main(args + ["--ckpt-dir", a])
+        os.makedirs(b)
+        shutil.copytree(os.path.join(a, "step_00000006"), os.path.join(b, "step_00000006"))
+        resumed = train.main(args + ["--ckpt-dir", b, "--resume"])
+        out["cli"] = dict(device=str(straight.params["embed"].device),
+                          bit_equal=bit_equal(torch, straight, resumed),
+                          step=int(resumed.opt.step))
+        check(out["cli"]["bit_equal"] and out["cli"]["step"] == 12
+              and straight.params["embed"].device.type == device.type,
+              f"the CLI on the card, resumed at step 6, equals 12 straight steps: {out['cli']}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 # --------------------------------------------------------------------- main
 def shape_entry(k: dict, path: str, launches) -> dict:
     """One measured shape of a kernel for the ``kernels`` line."""
@@ -2584,6 +2977,54 @@ def main() -> int:
     check(not any(tg_launches.values()), f"the tuner's path launches no kernel: {tg_launches}")
     free_device(torch)
 
+    # phase 16, train-qwen25-3b: the trainer at full width and depth
+    t_lm = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    tr = train_qwen25(torch, np, device)
+    torch.cuda.synchronize()
+    tr_launches = ops.launch_counts()
+    emit("phase16 train-qwen25-3b", **tr)
+    emit("phase16 launches", **tr_launches)
+    check_train(np, tr)
+    check(not any(tr_launches.values()), f"the train step launches no kernel: {tr_launches}")
+    free_device(torch)
+
+    # phase 17, lm-decode: prefill + the contiguous-cache decode, both commits
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ld = lm_decode(torch, np, device)
+    torch.cuda.synchronize()
+    ld_launches = ops.launch_counts()
+    for name, row in ld.items():
+        emit(f"phase17 lm-decode {name}", **row)
+    emit("phase17 launches", **ld_launches, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    check_decode(ld)
+    n_layers = get_config(TR_ARCH).num_layers
+    check(ld_launches["flash_attention"] == 2 * n_layers
+          and not any(v for k, v in ld_launches.items() if k != "flash_attention"),
+          f"two prefills launch flash_attention {n_layers} times each, nothing else: "
+          f"{ld_launches}")
+    ld_flash = flash_case(torch, device, torch.bfloat16, LD_BATCH, 16, 2, LD_PROMPT)
+    emit("phase17 flash_attention bfloat16 lm-decode", **{
+        k: (v.replace(" ", "_") if isinstance(v, str) else v) for k, v in ld_flash.items()})
+    free_device(torch)
+
+    # phase 18, train-gpu-vs-cpu: smoke steps, checkpoint resume, the CLI
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    gc_out = train_gpu_vs_cpu(torch, np, device)
+    torch.cuda.synchronize()
+    gc_launches = ops.launch_counts()
+    for name, row in gc_out.items():
+        emit(f"phase18 train-gpu-vs-cpu {name}", **row)
+    emit("phase18 launches", **gc_launches)
+    check(not any(gc_launches.values()), f"the training paths launch no kernel: {gc_launches}")
+    free_device(torch)
+    emit("phases16-18", wall_s=time.perf_counter() - t_lm)
+
     sources = {
         "page_move": ("src/repro_torch/kernels/csrc/page_copy.cu",
                       "src/repro/kernels/page_copy.py:34"),
@@ -2644,13 +3085,19 @@ def main() -> int:
         shape_entry(attn["flash_attention bfloat16 qwen2moe S512"], "serve-qwen2moe S512", None),
         {"path": "coloc-legs", "launches": cl_launches["flash_attention"]},
     ]
-    for row in rows:  # the fleet paths (phases 12-15) launch none of the kernels
+    by_name["flash_attention"]["shapes"].append(
+        shape_entry(ld_flash, "lm-decode prefill", ld_launches["flash_attention"]))
+    for row in rows:  # the fleet and training paths (phases 12-16, 18) launch none
         row.setdefault("shapes", []).extend([
             {"path": "sweep-64k", "launches": sc12_launches[row["name"]]},
             {"path": "fleet-gpu-vs-cpu", "launches": sc13_launches[row["name"]]},
             {"path": "autotune-64k", "launches": at_launches[row["name"]]},
             {"path": "tuner-gpu-vs-cpu", "launches": tg_launches[row["name"]]},
+            {"path": "train-qwen25-3b", "launches": tr_launches[row["name"]]},
+            {"path": "train-gpu-vs-cpu", "launches": gc_launches[row["name"]]},
         ])
+        if row["name"] != "flash_attention":
+            row["shapes"].append({"path": "lm-decode", "launches": ld_launches[row["name"]]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

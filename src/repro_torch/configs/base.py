@@ -1,5 +1,5 @@
-"""Model architecture config (the port's copy of the fields the serving
-slice reads, the MoE fields included).
+"""Model architecture config (the port's copy of the reference's fields
+for decoder-only transformers: dense, MoE and the VLM backbone).
 
 One ``ModelConfig`` per published architecture, built from its exact
 dimensions; ``smoke()`` derives the reduced config the CPU tests use, with
@@ -20,7 +20,7 @@ class ModelConfig:
     """Architecture description of a decoder-only transformer."""
 
     name: str
-    family: str  # dense | moe (the families the port serves so far)
+    family: str  # dense | moe | vlm (the families the port has so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -48,6 +48,7 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     sliding_window: int = 0  # 0 = full attention
+    frontend: str = "none"  # none | vision_stub (chameleon: token ids in)
 
     def __post_init__(self):
         if self.d_head == 0:

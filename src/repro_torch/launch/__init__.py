@@ -1,5 +1,5 @@
-"""Command-line entry points of the port: ``serve`` (the serving slice) and
-``hillclimb`` (the policy autotuner). The autotuner's names are exported
+"""Command-line entry points of the port: ``serve`` (the serving slice),
+``train`` (the trainer) and ``hillclimb`` (the policy autotuner). The autotuner's names are exported
 lazily, so ``python -m repro_torch.launch.hillclimb`` runs the module once."""
 import importlib
 

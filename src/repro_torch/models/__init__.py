@@ -1,2 +1,4 @@
-"""Model code of the port: the dense decoder-only transformer's layers,
-prefill and weight conversion from the reference's param tree."""
+"""Model code of the port: the decoder-only transformer's layers, its
+training forward and loss, prefill and contiguous-cache decode, the MoE
+block, the tuning flags, and weight conversion from the reference's param
+tree."""

@@ -34,8 +34,10 @@ def tensor_from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def params_from_numpy(cfg, params_np: Dict[str, Any], device) -> Dict[str, Any]:
-    """The port's parameter tree from the reference's (numpy leaves)."""
+def params_from_numpy(cfg, params_np: Dict[str, Any], device, dtype=None) -> Dict[str, Any]:
+    """The port's parameter tree from the reference's (numpy leaves). Every
+    leaf takes ``dtype`` where given (the optimizer's float32 moments and the
+    error buffer of grad compression share the tree), else the config's."""
     expected = {"embed", "layers", "final_norm"} | (set() if cfg.tie_embeddings else {"lm_head"})
     if set(params_np) != expected:
         raise KeyError(f"param tree has {sorted(params_np)}, expected {sorted(expected)}")
@@ -43,6 +45,8 @@ def params_from_numpy(cfg, params_np: Dict[str, Any], device) -> Dict[str, Any]:
     def conv(tree, name=""):
         if isinstance(tree, dict):
             return {k: conv(v, k) for k, v in tree.items()}
+        if dtype is not None:
+            return tensor_from_numpy(tree, dtype, device)
         return tensor_from_numpy(tree, torch.float32 if name == "router" else cfg.pdtype, device)
 
     out = conv(params_np)

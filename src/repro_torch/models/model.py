@@ -2,10 +2,14 @@
 
     api = get_model(cfg)
     params = api.init(seed)                 # on "cuda" unless device= says otherwise
-    logits, kv = api.prefill(params, tokens, max_len)
+    loss, metrics = api.loss(params, batch)
+    cache = api.init_cache(batch_size, max_len)
+    logits, cache = api.decode(params, token, cache)
+    logits, cache = api.prefill(params, tokens, max_len)
 
-The dense and MoE families are ported; the others raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The dense, MoE and VLM families (one decoder-only transformer) are ported;
+the others raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 """
 from __future__ import annotations
 
@@ -23,6 +27,9 @@ from repro_torch.models import transformer
 class ModelAPI:
     cfg: ModelConfig
     init: Callable[..., Any]
+    loss: Callable[..., Any]
+    init_cache: Callable[..., Any]
+    decode: Callable[..., Any]
     prefill: Callable[..., Any]
 
 
@@ -35,11 +42,19 @@ def _init(cfg: ModelConfig, seed: int = 0, device=None):
     return transformer.init_params(gen, cfg, dev)
 
 
+def _init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None):
+    dev = resolve_device(device, what="the KV cache")
+    return transformer.init_kv_cache(cfg, batch, max_len, dtype, dev)
+
+
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return ModelAPI(
             cfg=cfg,
             init=lambda seed=0, device=None: _init(cfg, seed, device),
+            loss=lambda p, b, **kw: transformer.loss_fn(p, b, cfg, **kw),
+            init_cache=lambda bs, ml, **kw: _init_cache(cfg, bs, ml, **kw),
+            decode=lambda p, t, c: transformer.decode_step(p, t, c, cfg),
             prefill=lambda p, t, ml: transformer.prefill(p, t, cfg, ml),
         )
     raise NotImplementedError(

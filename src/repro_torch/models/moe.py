@@ -13,8 +13,13 @@ token's drops depend on the tokens before it.
 The expert weights are padded to ``Ep = max(E, expert_pad_to)``; routing
 runs over the real E only and the pad experts receive zero rows. The
 reference's sharding annotations and its several-device ``moe_mlp_shardmap``
-are not carried over, and the capacity factor comes from the config (the
-reference's ``tuning`` override is not ported).
+are not carried over. The capacity factor is ``tuning.FLAGS.capacity_factor``
+where set, else the config's, as in the reference.
+
+Under autograd the block is differentiable as the reference's is: the
+gradients flow through the gate probabilities (the renormalised top-k
+weights and the aux loss's mean probabilities) and the expert weights; the
+top-k ids, the one-hot counts and the capacity ranks are integers.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import tuning
 
 Params = Dict[str, Any]
 
@@ -79,7 +85,8 @@ def init_moe(gen: torch.Generator, cfg, device, lead=()) -> Params:
 def capacity(tokens: int, cfg) -> int:
     """Slots per expert for a batch of ``tokens``: tokens * k / E times the
     capacity factor, rounded up to a multiple of 8 and at least 8."""
-    cap = int(math.ceil(tokens * cfg.moe_top_k / cfg.num_experts * cfg.capacity_factor))
+    cf = tuning.FLAGS.capacity_factor or cfg.capacity_factor
+    cap = int(math.ceil(tokens * cfg.moe_top_k / cfg.num_experts * cf))
     return max(8, ((cap + 7) // 8) * 8)
 
 

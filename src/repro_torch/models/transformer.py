@@ -1,24 +1,39 @@
-"""Decoder-only transformer, the prefill half (dense and MoE families).
+"""Decoder-only transformer (dense, MoE and VLM backbones): training
+forward and loss, prefill, and the contiguous-cache decode.
 
 Layers are stacked along a leading axis, as in the reference, and run in a
-Python loop over that axis (the reference's ``lax.scan``). Inference needs
-neither sharding annotations nor remat, so neither is carried over.
+Python loop over that axis (the reference's ``lax.scan``). Per-layer remat
+is ``torch.utils.checkpoint`` around each layer. The reference's sharding
+annotations are not carried over (one device).
+
+Attention: the training forward (``loss_fn``) runs ``L.blocked_attention``,
+which autograd differentiates, as the reference's ``_attn_full`` does; the
+prefill runs the ``flash_attention`` kernel (``L.causal_attention``), which
+has no backward. The decode reads and writes a ``KVCache`` in place.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.models import moe
+from repro_torch.models import moe, tuning
 
 Params = Dict[str, Any]
 
+# remat -> what each layer keeps for the backward. Eager torch has no
+# "save the dot products" policy, so "dots" recomputes the whole layer as
+# "block" does (the reference's default, which the parity tests run).
+REMAT_POLICIES = ("none", "block", "dots")
 
-class PrefillKV(NamedTuple):
-    """The prompt's keys and values, [L, B, max_len, nkv, dh] each (zero
-    past ``pos``), and ``pos``, the number of prompt tokens."""
+
+class KVCache(NamedTuple):
+    """Contiguous decode cache: k, v [L, B, S_max, nkv, dh] each (zero past
+    ``pos``), and ``pos``, the number of tokens in it (the reference's []
+    int32, a Python int here). ``decode_step`` writes k and v in place."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -62,21 +77,33 @@ def layer_params(params: Params, l: int) -> Params:
 
 
 # --------------------------------------------------------------------------- block
-def block_full(lp: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
-    """One decoder layer over a full sequence. Returns (x, (k, v))."""
+def block_full(lp: Params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
+               flash: bool = False):
+    """One decoder layer over a full sequence. Returns (x, aux, (k, v)).
+    ``flash``: the prefill's ``flash_attention`` kernel in place of
+    ``blocked_attention``."""
     h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q, k, v = L.qkv_project(lp["attn"], h, cfg)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    o = L.causal_attention(q, k, v, sliding_window=cfg.sliding_window)
+    if flash:
+        o = L.causal_attention(q, k, v, sliding_window=cfg.sliding_window)
+    else:
+        o = L.blocked_attention(q, k, v, causal=True, sliding_window=cfg.sliding_window,
+                                q_block=tuning.FLAGS.q_block, kv_block=tuning.FLAGS.kv_block)
     x = x + o.reshape(*x.shape[:2], -1) @ lp["attn"]["w_o"]
     h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + mlp_block(lp, h, cfg), (k, v)
+    if cfg.is_moe:
+        m, aux = moe.moe_mlp(lp["moe"], h, cfg)
+    else:
+        m, aux = L.mlp(lp["mlp"], h, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + m, aux, (k, v)
 
 
 def mlp_block(lp: Params, h: torch.Tensor, cfg) -> torch.Tensor:
-    """The layer's feed-forward half: the MoE block (its aux loss dropped:
-    inference) or the dense MLP."""
+    """The feed-forward half of a decode step's layer: the MoE block (its
+    aux loss dropped, as the reference's decode drops it) or the dense
+    MLP."""
     if cfg.is_moe:
         return moe.moe_mlp(lp["moe"], h, cfg)[0]
     return L.mlp(lp["mlp"], h, cfg)
@@ -84,21 +111,34 @@ def mlp_block(lp: Params, h: torch.Tensor, cfg) -> torch.Tensor:
 
 # --------------------------------------------------------------------------- forward
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    return params["embed"][tokens].to(cfg.cdtype)
+    return params["embed"][tokens.long()].to(cfg.cdtype)
 
 
 def forward_hidden(params: Params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
-                   collect_kv: bool = False):
-    """Run the layer stack. x: [B, S, d]. Returns (hidden, kv | None) with
-    kv = (k, v), each [L, B, S, nkv, dh], when ``collect_kv``."""
+                   remat: str = "block", collect_kv: bool = False, flash: bool = False):
+    """Run the layer stack. x: [B, S, d]. Returns (hidden, aux, kv | None):
+    aux the sum of the layers' MoE losses (float32), kv = (k, v), each
+    [L, B, S, nkv, dh], when ``collect_kv``. Under autograd and a ``remat``
+    other than "none", each layer keeps only its input for the backward and
+    is run again there."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat {remat!r} is not one of {REMAT_POLICIES}")
+    use_ckpt = remat != "none" and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     for l in range(cfg.num_layers):
-        x, (k, v) = block_full(layer_params(params, l), x, cfg, positions)
+        lp = layer_params(params, l)
+        if use_ckpt:
+            x, a, (k, v) = checkpoint(block_full, lp, x, cfg, positions, flash=flash,
+                                      use_reentrant=False)
+        else:
+            x, a, (k, v) = block_full(lp, x, cfg, positions, flash=flash)
+        aux = aux + a
         if collect_kv:
             ks.append(k)
             vs.append(v)
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return h, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+    return h, aux, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
 
 
 def lm_head_weight(params: Params, cfg) -> torch.Tensor:
@@ -107,17 +147,181 @@ def lm_head_weight(params: Params, cfg) -> torch.Tensor:
     return params["lm_head"]
 
 
-@torch.no_grad()
-def prefill(params: Params, tokens: torch.Tensor, cfg, max_len: int):
-    """Process a full prompt (tokens [B, S]); returns (last-token logits
-    [B, 1, V] float32, ``PrefillKV`` padded to ``max_len``)."""
+def ce_chunk_size(B: int, S: int, V: int) -> int:
+    """The reference's chunk rule: about 64 MB of float32 logits a chunk,
+    a power of two, at least 16, at most S."""
+    chunk = max(16, min(S, int(64e6 / max(B * V * 4, 1)) or 16))
+    chunk = max(16, 1 << (chunk.bit_length() - 1))
+    return min(chunk, S)
+
+
+def _ce_chunk(h: torch.Tensor, lab: torch.Tensor, head: torch.Tensor):
+    """(sum of -log p(label), valid labels) of one chunk, float32."""
+    ldt = torch.bfloat16 if tuning.FLAGS.loss_logits_bf16 else torch.float32
+    logits = (h @ head).to(ldt)  # [B, chunk, V]
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    lab_c = lab.clamp(0, head.shape[1] - 1).long()
+    ll = logits.gather(-1, lab_c[..., None])[..., 0].float()
+    valid = (lab >= 0).float()
+    return ((lse - ll) * valid).sum(), valid.sum()
+
+
+def chunked_ce_loss(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor, cfg,
+                    chunk: int = 0):
+    """Cross-entropy over sequence chunks, summed in order as the reference's
+    scan: peak memory is [B, chunk, V] logits instead of [B, S, V]. Labels of
+    -1 are ignored. Returns (sum_loss, n_valid). Under autograd each chunk is
+    run again in the backward (``torch.utils.checkpoint``), so one chunk's
+    float32 logits are alive at a time, not every chunk's; the loss is the
+    same."""
+    B, S, _ = hidden.shape
+    if chunk <= 0:
+        chunk = ce_chunk_size(B, S, head.shape[1])
+    pad = (-S) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    grad = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, S + pad, chunk):
+        h, lab = hidden[:, lo : lo + chunk], labels[:, lo : lo + chunk]
+        if grad:
+            t, n = checkpoint(_ce_chunk, h, lab, head, use_reentrant=False)
+        else:
+            t, n = _ce_chunk(h, lab, head)
+        tot = tot + t
+        cnt = cnt + n
+    return tot, cnt
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg, *, remat: str = "block"):
+    """Next-token LM loss. batch: tokens [B, S], labels [B, S] (-1 ignore).
+    Returns (loss + aux, {"ce", "aux", "tokens"}), float32 scalars."""
+    tokens, labels = batch["tokens"], batch["labels"]
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     x = embed_tokens(params, tokens, cfg)
-    h, (k, v) = forward_hidden(params, x, cfg, positions, collect_kv=True)
+    h, aux, _ = forward_hidden(params, x, cfg, positions, remat=remat)
+    tot, cnt = chunked_ce_loss(h, lm_head_weight(params, cfg), labels, cfg)
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss + aux, {"ce": loss, "aux": aux, "tokens": cnt}
+
+
+# --------------------------------------------------------------------------- decode
+def init_kv_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> KVCache:
+    dt = dtype or cfg.cdtype
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.d_head)
+    return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
+                   v=torch.zeros(shape, dtype=dt, device=device), pos=0)
+
+
+@torch.no_grad()
+def prefill(params: Params, tokens: torch.Tensor, cfg, max_len: int):
+    """Process a full prompt (tokens [B, S]); returns (last-token logits
+    [B, 1, V] float32, ``KVCache`` of ``max_len`` positions holding the
+    prompt)."""
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    x = embed_tokens(params, tokens, cfg)
+    h, _, (k, v) = forward_hidden(params, x, cfg, positions, remat="none", collect_kv=True,
+                                  flash=True)
     pad = max_len - S
     if pad > 0:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
     logits = (h[:, -1:] @ lm_head_weight(params, cfg)).float()
-    return logits, PrefillKV(k=k.to(cfg.cdtype), v=v.to(cfg.cdtype), pos=S)
+    return logits, KVCache(k=k.to(cfg.cdtype), v=v.to(cfg.cdtype), pos=S)
+
+
+def _decode_rope(x: torch.Tensor, cfg, pos: int):
+    """The rotation (cos, sin) of position ``pos`` for a step's B lanes,
+    computed once a step: every layer rotates at the same position."""
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+    return L.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
+
+
+def _decode_qkv(lp: Params, x: torch.Tensor, cfg, pos: int, rope=None):
+    """The new token's q, k, v, rotated to position ``pos``."""
+    h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q, k, v = L.qkv_project(lp["attn"], h, cfg)
+    cos, sin = rope if rope is not None else _decode_rope(x, cfg, pos)
+    return L.rotate(q, cos, sin), L.rotate(k, cos, sin), v
+
+
+def _decode_out(lp: Params, x: torch.Tensor, o: torch.Tensor, cfg) -> torch.Tensor:
+    """The layer's rest after attention: output projection, residual, MLP."""
+    x = x + o.reshape(x.shape[0], 1, -1) @ lp["attn"]["w_o"]
+    h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    return x + mlp_block(lp, h, cfg)
+
+
+def block_decode(lp: Params, x: torch.Tensor, cfg, k_cache, v_cache, pos: int, rope=None):
+    """One decoder layer for a single new token. x: [B, 1, d]; k_cache,
+    v_cache: [B, S, nkv, dh], the new key and value written at ``pos`` in
+    place, then attention over the first pos + 1; ``rope``: the step's
+    ``_decode_rope``. Returns (x, k_cache, v_cache)."""
+    q, k, v = _decode_qkv(lp, x, cfg, pos, rope)
+    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    o = L.decode_attention(q, k_cache, v_cache, pos + 1, sliding_window=cfg.sliding_window)
+    return _decode_out(lp, x, o, cfg), k_cache, v_cache
+
+
+def _block_decode_deferred(lp: Params, x: torch.Tensor, cfg, k_cache, v_cache, pos: int,
+                           rope=None):
+    """``block_decode`` that leaves the cache alone: attention runs over the
+    ``pos`` tokens in it and the current token's key and value are merged
+    into the softmax exactly. Returns (x, k, v), the new k, v [B, 1, nkv,
+    dh] for one commit after the stack."""
+    B = x.shape[0]
+    q, k, v = _decode_qkv(lp, x, cfg, pos, rope)
+    nkv, dh = cfg.num_kv_heads, cfg.d_head
+    g = cfg.num_heads // nkv
+    acc, m, l = L.decode_attention_stats(q, k_cache, v_cache, pos,
+                                         sliding_window=cfg.sliding_window)
+    # the current token: score q.k_new, value v_new
+    qg = q.reshape(B, 1, nkv, g, dh).float()
+    s_new = (qg * k.float().reshape(B, 1, nkv, 1, dh)).sum(-1).permute(0, 2, 3, 1)
+    s_new = s_new / torch.sqrt(torch.full((), dh, dtype=torch.float32, device=x.device))
+    m2 = torch.maximum(m, s_new)  # [B, nkv, g, 1]
+    w_c = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m2))
+    w_n = torch.exp(s_new - m2)
+    v_n = v.float().reshape(B, 1, nkv, 1, dh).permute(0, 2, 3, 1, 4)  # [B, nkv, 1, 1, dh]
+    acc2 = acc * w_c[..., None] + w_n[..., None] * v_n
+    l2 = l * w_c + w_n
+    o = (acc2 / torch.clamp(l2[..., None], min=1e-30)).to(x.dtype)
+    o = o.permute(0, 3, 1, 2, 4)  # [B, 1, nkv, g, dh]
+    return _decode_out(lp, x, o, cfg), k, v
+
+
+@torch.no_grad()
+def decode_step(params: Params, token: torch.Tensor, cache: KVCache, cfg):
+    """One decode step. token: [B] int. Returns (logits [B, V] float32, the
+    cache with ``pos`` + 1). The cache's k and v are written in place (the
+    reference updates a donated buffer). Under
+    ``tuning.FLAGS.decode_deferred_commit`` every layer reads the cache as
+    it was and the new keys and values of all layers are written once
+    after the stack; otherwise each layer writes its own first."""
+    pos = cache.pos
+    if pos >= cache.k.shape[2]:
+        raise ValueError(f"the cache holds {cache.k.shape[2]} positions; it is full")
+    x = embed_tokens(params, token[:, None], cfg)
+    rope = _decode_rope(x, cfg, pos)
+    if tuning.FLAGS.decode_deferred_commit:
+        k_tok, v_tok = [], []
+        for l in range(cfg.num_layers):
+            x, k_new, v_new = _block_decode_deferred(layer_params(params, l), x, cfg,
+                                                     cache.k[l], cache.v[l], pos, rope)
+            k_tok.append(k_new[:, 0])
+            v_tok.append(v_new[:, 0])
+        # one commit for every layer: [L, B, nkv, dh] at position pos
+        cache.k[:, :, pos] = torch.stack(k_tok).to(cache.k.dtype)
+        cache.v[:, :, pos] = torch.stack(v_tok).to(cache.v.dtype)
+    else:
+        for l in range(cfg.num_layers):
+            x, _, _ = block_decode(layer_params(params, l), x, cfg, cache.k[l], cache.v[l], pos,
+                                   rope)
+    h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (h[:, 0] @ lm_head_weight(params, cfg)).float()
+    return logits, KVCache(k=cache.k, v=cache.v, pos=pos + 1)

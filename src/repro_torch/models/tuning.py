@@ -1,0 +1,71 @@
+"""Implementation and schedule flags, the port's copy of the reference's
+``models/tuning.py``.
+
+A process-global mutable record read by the model code at call time (the
+reference reads it at trace time). ``tuned(**flags)`` sets flags for a
+block and restores them after. The defaults are the reference's.
+
+This is deliberately not part of ``ModelConfig``: architecture configs are
+published facts; these are implementation choices.
+
+The port reads ``attn_score_f32``, ``q_block``, ``kv_block``,
+``decode_deferred_commit``, ``loss_logits_bf16``, ``norm_bf16_apply`` and
+``capacity_factor``. The sharding flags (``seq_parallel_activations``,
+``moe_shard_capacity``, ``moe_shard_both``, ``moe_explicit_a2a``,
+``moe_shardmap``, ``serve_resident_weights``) and ``ssd_chunk`` are kept as
+fields with the reference's defaults and change nothing yet: the port runs
+on one device, and the mesh paths that read them come with ROADMAP Queue 1
+item 11 (``ssd_chunk`` with the SSM family, item 10).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass
+class TuningFlags:
+    # attention: dtype of the score / probability tensors of the blocked
+    # (training) attention. fp32 = baseline.
+    attn_score_f32: bool = True
+    # block sizes of the blocked attention
+    q_block: int = 512
+    kv_block: int = 1024
+    # sharding flags: kept, read by no code of the port yet (item 11)
+    seq_parallel_activations: bool = True
+    moe_shard_capacity: bool = False
+    moe_shard_both: bool = False
+    moe_explicit_a2a: bool = False
+    moe_shardmap: bool = True
+    # decode: attention reads the cache as it was before the step and merges
+    # the current token's key and value exactly (online-softmax stats); the
+    # new keys and values of every layer are committed once after the stack
+    decode_deferred_commit: bool = True
+    # serving: replicate weights across the data axes (a sharding flag)
+    serve_resident_weights: bool = True
+    # MoE capacity factor override (None: the config's)
+    capacity_factor: Optional[float] = None
+    # chunked CE loss: logits in bf16 (False = fp32 baseline)
+    loss_logits_bf16: bool = False
+    # SSD chunk length override (0 = cfg.ssm_chunk); the SSM family is not
+    # ported yet
+    ssd_chunk: int = 0
+    # rms_norm: float32 only for the variance and the [B, S, 1] scale; the
+    # full-width multiply stays in the compute dtype. Baseline: full fp32.
+    norm_bf16_apply: bool = False
+
+
+FLAGS = TuningFlags()  # one shared object, mutated in place
+
+
+@contextlib.contextmanager
+def tuned(**kw):
+    prev = {k: getattr(FLAGS, k) for k in kw}
+    for k, v in kw.items():
+        setattr(FLAGS, k, v)
+    try:
+        yield FLAGS
+    finally:
+        for k, v in prev.items():
+            setattr(FLAGS, k, v)

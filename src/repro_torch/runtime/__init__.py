@@ -1,2 +1,2 @@
-"""Fault tolerance of the fleet's scenario sweeps: worker supervision and
-checkpoint / resume."""
+"""Fault tolerance: the fleet's sweeps (worker supervision, checkpoint /
+resume) and the trainer's (stragglers, elastic restart)."""

@@ -1,4 +1,5 @@
-"""Fault tolerance of the fleet's scenario sweeps (``core.scenario.run_sweep``).
+"""Fault tolerance of the fleet's scenario sweeps (``core.scenario.run_sweep``)
+and of the trainer (``launch/train.py``).
 
   * :class:`HeartbeatTracker` declares a host dead after ``timeout`` seconds
     of silence (the fleet's dispatch worker is host 0); the clock is
@@ -11,7 +12,16 @@
     counters, and every simulator's host state and history) in one atomic
     step directory, and restores it in place.
 
-States cross into a checkpoint as numpy arrays in the reference's dtypes
+The trainer's half, as the reference's:
+  * :class:`StragglerDetector` keeps a step-time EWMA per host and names
+    the hosts slower than ``ratio`` x the median;
+  * :func:`plan_elastic_mesh` picks the largest rectangular (data, model)
+    mesh the surviving hosts allow;
+  * :class:`ElasticRunner` drives a step function with checkpoints and, on
+    an injected :class:`HostFailure`, restores the last checkpoint and goes
+    on with a halved world.
+
+States cross into a sweep checkpoint as numpy arrays in the reference's dtypes
 (``types.state_to_numpy`` / ``state_from_numpy``); each machine's
 ``torch.Generator`` state is saved beside them. The meta is JSON.
 """
@@ -373,3 +383,80 @@ class SweepCheckpoint:
             if mm["failed"]:
                 fleet.fail_machine(i)
         return int(meta["cur"])
+
+
+# ------------------------------------------------------------------ trainer
+class StragglerDetector:
+    """Per-host step-time EWMA; hosts slower than ``ratio`` x the median are
+    stragglers. Mitigations (re-shard its data, backup steps) are the
+    caller's: the detector only decides."""
+
+    def __init__(self, host_ids: Sequence[int], ewma: float = 0.3, ratio: float = 1.8):
+        self.ewma = ewma
+        self.ratio = ratio
+        self.times: Dict[int, Optional[float]] = {h: None for h in host_ids}
+
+    def record(self, host_id: int, step_seconds: float) -> None:
+        prev = self.times.get(host_id)
+        self.times[host_id] = (
+            step_seconds if prev is None else self.ewma * step_seconds + (1 - self.ewma) * prev
+        )
+
+    def stragglers(self) -> List[int]:
+        vals = [t for t in self.times.values() if t is not None]
+        if len(vals) < 2:
+            return []
+        med = sorted(vals)[len(vals) // 2]
+        return [h for h, t in self.times.items() if t is not None and t > self.ratio * med]
+
+
+def plan_elastic_mesh(alive_hosts: int, chips_per_host: int,
+                      model_parallel: int) -> Tuple[int, int]:
+    """Largest rectangular (data, model) mesh from the surviving hosts: the
+    model axis is fixed (the weights are sharded that way), the data axis
+    shrinks to the largest power of two of full rows. Returns (data_size,
+    model_size)."""
+    total = alive_hosts * chips_per_host
+    if total < model_parallel:
+        raise RuntimeError("not enough chips for the model-parallel axis")
+    rows = total // model_parallel
+    return 1 << (rows.bit_length() - 1), model_parallel
+
+
+class HostFailure(RuntimeError):
+    pass
+
+
+class ElasticRunner:
+    """Drives a step function with checkpoint / restart on injected failures.
+
+    ``make_step(world_size) -> step_fn`` and ``step_fn(state, step) ->
+    state``. At each step in ``fail_at`` the runner loses a host: it halves
+    the world, restores the last checkpoint (saved every ``save_every``
+    steps) and goes on from its step."""
+
+    def __init__(self, checkpointer, make_step, save_every: int = 10):
+        self.ckpt = checkpointer
+        self.make_step = make_step
+        self.save_every = save_every
+        self.restarts = 0
+
+    def run(self, state, world_size: int, n_steps: int, fail_at=()):
+        step_fn = self.make_step(world_size)
+        fail_at = set(fail_at)
+        step = 0
+        while step < n_steps:
+            if step % self.save_every == 0:
+                self.ckpt.save(step, state, meta={"world": world_size}, blocking=True)
+            if step in fail_at:
+                fail_at.discard(step)
+                self.restarts += 1
+                world_size = max(world_size // 2, 1)
+                step_fn = self.make_step(world_size)
+                last = self.ckpt.latest_step()
+                state, _ = self.ckpt.restore(state, step=last)
+                step = last
+                continue
+            state = step_fn(state, step)
+            step += 1
+        return state, world_size

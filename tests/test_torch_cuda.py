@@ -480,3 +480,34 @@ def test_cuda_autotuner_matches_cpu(cuda, monkeypatch):
         for f, a in getattr(before, part)._asdict().items():
             assert np.array_equal(a, getattr(getattr(after, part), f)), (part, f)
     assert torch.equal(mgr._state.rng.get_state(), gen_before)
+
+
+@pytest.mark.cuda
+def test_cuda_train_steps_match_cpu(cuda):
+    """Six smoke train steps (qwen2.5-3b, float32, no TF32) from one state
+    copied tensor by tensor to the card: losses within 1e-4 relative,
+    parameters within 2e-4 (a fifth of one Adam step at lr 1e-3: an element
+    whose gradient is near zero may take a step of another size), the step
+    counters equal. The training path launches none of the five kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.training.optimizer import AdamWConfig, named_leaves
+    from repro_torch.training.train_state import init_train_state, make_train_step, state_to
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config("qwen2.5-3b").smoke()
+    cpu = init_train_state(cfg, 0, device="cpu")
+    gpu = state_to(cpu, cuda)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2), microbatch=2)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 64, 4, seed=17))
+    ops.reset_launch_counts()
+    for s in range(6):
+        b = {k: torch.as_tensor(v) for k, v in data.batch_at(s).items()}
+        cpu, mc = step(cpu, b)
+        gpu, mg = step(gpu, {k: v.to(cuda) for k, v in b.items()})
+        assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-4)
+    torch.cuda.synchronize()
+    assert not any(ops.launch_counts().values())
+    assert int(gpu.opt.step) == int(cpu.opt.step) == 6
+    for (path, c), (_, g) in zip(named_leaves(cpu.params), named_leaves(gpu.params)):
+        torch.testing.assert_close(g.cpu(), c, atol=2e-4, rtol=0, msg=str(path))
