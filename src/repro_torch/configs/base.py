@@ -1,5 +1,6 @@
-"""Model architecture config (the port's copy of the reference's fields
-for decoder-only transformers: dense, MoE and the VLM backbone).
+"""Model architecture config (the port's copy of the reference's fields:
+decoder-only transformers, dense, MoE and the VLM backbone; the Mamba2 / SSD
+state-space model; the hybrid of both; the encoder-decoder).
 
 One ``ModelConfig`` per published architecture, built from its exact
 dimensions; ``smoke()`` derives the reduced config the CPU tests use, with
@@ -17,10 +18,10 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torc
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description of a decoder-only transformer."""
+    """Architecture description. All families share this one record."""
 
     name: str
-    family: str  # dense | moe | vlm (the families the port has so far)
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -45,10 +46,23 @@ class ModelConfig:
     # pad the expert weight arrays to this count (0 = none); routing stays
     # over the real num_experts, the pad experts are never routed to
     expert_pad_to: int = 0
+    # -- SSM (Mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 128  # SSD chunk length
+    ssm_n_groups: int = 1
+    # -- hybrid (zamba2-style shared attention blocks)
+    attn_every: int = 0  # a shared attn + MLP block after every k SSM layers
+    # -- encoder-decoder (whisper-style)
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    max_encoder_len: int = 1_500  # whisper: 30 s of audio -> 1,500 frames
+    frontend: str = "none"  # none | audio_stub | vision_stub
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
-    sliding_window: int = 0  # 0 = full attention
-    frontend: str = "none"  # none | vision_stub (chameleon: token ids in)
+    sliding_window: int = 0  # 0 = full attention (the hybrid caps its window)
 
     def __post_init__(self):
         if self.d_head == 0:
@@ -57,6 +71,29 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def is_ssm(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def is_hybrid(self) -> bool:
+        return self.family == "hybrid"
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    @property
+    def attn_invocations(self) -> int:
+        """Number of shared-attention invocations in a hybrid stack."""
+        if self.attn_every <= 0:
+            return 0
+        return self.num_layers // self.attn_every
 
     @property
     def pdtype(self) -> torch.dtype:
@@ -82,6 +119,12 @@ class ModelConfig:
             num_experts=8 if self.is_moe else 0,
             moe_top_k=min(self.moe_top_k, 2) if self.is_moe else 0,
             num_shared_experts=min(self.num_shared_experts, 1),
+            ssm_state=16 if self.ssm_state else 0,
+            ssm_head_dim=16 if self.ssm_state else 64,
+            ssm_chunk=16,
+            attn_every=2 if self.attn_every else 0,
+            encoder_layers=2 if self.is_encoder_decoder else 0,
+            max_encoder_len=32,
             sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
             param_dtype="float32",
             compute_dtype="float32",

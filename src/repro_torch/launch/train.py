@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --smoke \\
         --steps 100 --ckpt-dir ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m --smoke
 
 Wires together, as the reference's ``launch/train.py``: config ->
 deterministic data pipeline with prefetch -> train step -> asynchronous
@@ -9,6 +10,13 @@ checkpointing -> heartbeat and straggler telemetry. It runs on the card;
 ``--device cpu`` runs it on the CPU. ``--smoke`` takes the reduced float32
 config. ``--mesh test|prod`` needs a device mesh, which waits for ROADMAP
 Queue 1 item 11.
+
+Every decoder-only architecture trains here (dense, MoE, VLM, the SSM and
+the hybrid). The encoder-decoder (whisper-tiny) does not: its loss needs
+the encoder's frame embeddings (``enc_embeds``), which the token pipeline
+does not make (the reference's CLI fails on it inside the loss), so it is
+refused up front; train it through ``get_model(cfg).loss`` with a batch
+that holds ``enc_embeds``.
 """
 from __future__ import annotations
 
@@ -54,6 +62,11 @@ def main(argv=None):
     device = resolve_device(args.device, what="the trainer")
 
     cfg = get_config(args.arch)
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{args.arch} is an encoder-decoder: its loss needs enc_embeds (the encoder's frame "
+            "embeddings), which the token pipeline does not make; train it through "
+            "get_model(cfg).loss with a batch holding enc_embeds")
     if args.smoke:
         cfg = cfg.smoke()
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps)

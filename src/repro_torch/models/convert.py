@@ -2,14 +2,21 @@
 the numpy arrays of ``jax.device_get``, into the port's parameters.
 
 The two packages share one layout (dense weights [in, out], every layer's
-weights stacked on a leading L axis), so the conversion is a copy with the
-config's dtype: ``embed``, ``layers`` (``attn_norm``, ``attn`` with ``w_q``,
-``w_k``, ``w_v``, ``w_o`` and the optional biases and qk-norms,
-``mlp_norm``, ``mlp`` or, for an MoE config, ``moe``), ``final_norm`` and
-``lm_head`` unless the embeddings are tied. The MoE subtree is ``router``
-[L, d, E] (kept in float32, as the reference keeps it), ``w_gate``,
-``w_up`` and ``w_down`` [L, Ep, ...] with the pad experts, and the optional
-``shared`` block.
+weights stacked on leading axes), so the conversion is a copy with the
+config's dtype. The trees, by family:
+- dense / MoE / VLM: ``embed``, ``layers`` (``attn_norm``, ``attn`` with
+  ``w_q``, ``w_k``, ``w_v``, ``w_o`` and the optional biases and qk-norms,
+  ``mlp_norm``, ``mlp`` or, for an MoE config, ``moe``), ``final_norm`` and
+  ``lm_head`` unless the embeddings are tied. The MoE subtree is ``router``
+  [L, d, E], ``w_gate``, ``w_up`` and ``w_down`` [L, Ep, ...] with the pad
+  experts, and the optional ``shared`` block;
+- SSM: ``embed``, ``layers`` (``norm``, ``ssm``), ``final_norm``;
+- hybrid: ``embed``, ``mamba_groups`` [G, per_group, ...], ``mamba_tail``
+  [tail, ...] where the layout has a tail, ``shared_attn``, ``final_norm``;
+- audio: ``embed``, ``enc_layers``, ``enc_norm``, ``dec_layers``,
+  ``final_norm`` (LayerNorms as ``w`` and ``b``).
+``router``, ``A_log``, ``D`` and ``dt_bias`` stay float32 whatever the
+param dtype, as the reference keeps them.
 """
 from __future__ import annotations
 
@@ -34,11 +41,28 @@ def tensor_from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+FLOAT32_LEAVES = ("router", "A_log", "D", "dt_bias")
+
+
+def expected_keys(cfg) -> set:
+    """The top-level keys of ``cfg``'s param tree."""
+    head = set() if cfg.tie_embeddings else {"lm_head"}
+    if cfg.family == "ssm":
+        return {"embed", "layers", "final_norm"} | head
+    if cfg.family == "hybrid":
+        tail = cfg.num_layers - cfg.attn_invocations * cfg.attn_every
+        return ({"embed", "mamba_groups", "shared_attn", "final_norm"}
+                | ({"mamba_tail"} if tail else set()) | head)
+    if cfg.family == "audio":
+        return {"embed", "enc_layers", "enc_norm", "dec_layers", "final_norm"}
+    return {"embed", "layers", "final_norm"} | head
+
+
 def params_from_numpy(cfg, params_np: Dict[str, Any], device, dtype=None) -> Dict[str, Any]:
     """The port's parameter tree from the reference's (numpy leaves). Every
     leaf takes ``dtype`` where given (the optimizer's float32 moments and the
     error buffer of grad compression share the tree), else the config's."""
-    expected = {"embed", "layers", "final_norm"} | (set() if cfg.tie_embeddings else {"lm_head"})
+    expected = expected_keys(cfg)
     if set(params_np) != expected:
         raise KeyError(f"param tree has {sorted(params_np)}, expected {sorted(expected)}")
 
@@ -47,9 +71,16 @@ def params_from_numpy(cfg, params_np: Dict[str, Any], device, dtype=None) -> Dic
             return {k: conv(v, k) for k, v in tree.items()}
         if dtype is not None:
             return tensor_from_numpy(tree, dtype, device)
-        return tensor_from_numpy(tree, torch.float32 if name == "router" else cfg.pdtype, device)
+        return tensor_from_numpy(tree, torch.float32 if name in FLOAT32_LEAVES else cfg.pdtype,
+                                 device)
 
     out = conv(params_np)
+    if cfg.family in ("dense", "moe", "vlm"):
+        _check_transformer(cfg, out)
+    return out
+
+
+def _check_transformer(cfg, out) -> None:
     L = cfg.num_layers
     for name, leaf in out["layers"]["attn"].items():
         if leaf.shape[0] != L:
@@ -69,4 +100,3 @@ def params_from_numpy(cfg, params_np: Dict[str, Any], device, dtype=None) -> Dic
         for name, leaf in moe.get("shared", {}).items():
             if leaf.shape[0] != L:
                 raise ValueError(f"layers.moe.shared.{name} has no leading layer axis of {L}")
-    return out

@@ -174,6 +174,15 @@ def causal_attention(q, k, v, *, sliding_window: int = 0) -> torch.Tensor:
     return o.transpose(1, 2)
 
 
+def full_attention(q, k, v) -> torch.Tensor:
+    """Non-causal attention of every query over every key, the prefill's
+    (the encoder-decoder's encoder and cross-attention; ``blocked_attention
+    (causal=False)`` in the reference). q: [B, Sq, nh, dh]; k, v: [B, Skv,
+    nkv, dh], Sq and Skv free. Returns [B, Sq, nh, dh]."""
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return ops.flash_attention(qh, kh, vh, causal=False).transpose(1, 2)
+
+
 def blocked_attention(q, k, v, *, causal: bool, q_block: int = 512, kv_block: int = 1024,
                       sliding_window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """Memory-efficient attention in plain torch, differentiable by autograd:

@@ -7,9 +7,12 @@
     logits, cache = api.decode(params, token, cache)
     logits, cache = api.prefill(params, tokens, max_len)
 
-The dense, MoE and VLM families (one decoder-only transformer) are ported;
-the others raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+Every family of the reference: the decoder-only transformer (dense, MoE,
+VLM), the Mamba2 SSM, the hybrid and the encoder-decoder. The audio
+family's ``prefill`` is ``encdec.prefill_cross(params, enc_embeds,
+max_len)``, as in the reference; its teacher-forced prefill is
+``encdec.prefill``. Unlike the reference's, the SSM and hybrid APIs expose
+their ``prefill`` (the reference's modules have it).
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.manager import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 
 
 @dataclass(frozen=True)
@@ -33,30 +36,43 @@ class ModelAPI:
     prefill: Callable[..., Any]
 
 
-def _init(cfg: ModelConfig, seed: int = 0, device=None):
-    """Random weights from ``seed`` on ``device`` (``None`` = the card,
-    which raises where there is none)."""
-    dev = resolve_device(device, what="the model")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    return transformer.init_params(gen, cfg, dev)
-
-
-def _init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None):
-    dev = resolve_device(device, what="the KV cache")
-    return transformer.init_kv_cache(cfg, batch, max_len, dtype, dev)
+# family -> (module, its cache builder)
+_FAMILIES = {
+    "dense": (transformer, transformer.init_kv_cache),
+    "moe": (transformer, transformer.init_kv_cache),
+    "vlm": (transformer, transformer.init_kv_cache),
+    "ssm": (ssm_lm, ssm_lm.init_cache),
+    "hybrid": (hybrid, hybrid.init_cache),
+    "audio": (encdec, encdec.init_cache),
+}
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family in ("dense", "moe", "vlm"):
-        return ModelAPI(
-            cfg=cfg,
-            init=lambda seed=0, device=None: _init(cfg, seed, device),
-            loss=lambda p, b, **kw: transformer.loss_fn(p, b, cfg, **kw),
-            init_cache=lambda bs, ml, **kw: _init_cache(cfg, bs, ml, **kw),
-            decode=lambda p, t, c: transformer.decode_step(p, t, c, cfg),
-            prefill=lambda p, t, ml: transformer.prefill(p, t, cfg, ml),
-        )
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: it waits for ROADMAP Queue 1 item 10"
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family}")
+    mod, make_cache = _FAMILIES[cfg.family]
+
+    def init(seed: int = 0, device=None):
+        """Random weights from ``seed`` on ``device`` (``None`` = the card,
+        which raises where there is none)."""
+        dev = resolve_device(device, what="the model")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return mod.init_params(gen, cfg, dev)
+
+    def init_cache(batch: int, max_len: int = 0, dtype=None, device=None):
+        dev = resolve_device(device, what="the decode cache")
+        return make_cache(cfg, batch, max_len, dtype, dev)
+
+    if cfg.family == "audio":
+        prefill = lambda p, e, ml: encdec.prefill_cross(p, e, cfg, ml)  # noqa: E731
+    else:
+        prefill = lambda p, t, ml=0: mod.prefill(p, t, cfg, ml)  # noqa: E731
+    return ModelAPI(
+        cfg=cfg,
+        init=init,
+        loss=lambda p, b, **kw: mod.loss_fn(p, b, cfg, **kw),
+        init_cache=init_cache,
+        decode=lambda p, t, c: mod.decode_step(p, t, c, cfg),
+        prefill=prefill,
     )

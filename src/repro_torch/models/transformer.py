@@ -68,12 +68,14 @@ def init_params(gen: torch.Generator, cfg, device) -> Params:
     return p
 
 
+def take(tree, i: int):
+    """Entry ``i`` of every leaf's leading axis: views into stacked tensors."""
+    return {k: take(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
+
+
 def layer_params(params: Params, l: int) -> Params:
     """Layer ``l``'s weights: views into the stacked tensors."""
-    def take(tree):
-        return {k: take(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[l]
-
-    return take(params["layers"])
+    return take(params["layers"], l)
 
 
 # --------------------------------------------------------------------------- block
@@ -139,6 +141,20 @@ def forward_hidden(params: Params, x: torch.Tensor, cfg, positions: torch.Tensor
             vs.append(v)
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return h, aux, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+
+
+def run_stack(layers: Params, n: int, body, x: torch.Tensor, remat: str, *args) -> torch.Tensor:
+    """x through ``n`` layers stacked on the leading axis of ``layers``, each
+    ``body(layer_params, x, *args) -> x``. Under autograd and a ``remat``
+    other than "none", each layer keeps only its input for the backward and
+    is run again there."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat {remat!r} is not one of {REMAT_POLICIES}")
+    use_ckpt = remat != "none" and torch.is_grad_enabled()
+    for l in range(n):
+        lp = take(layers, l)
+        x = checkpoint(body, lp, x, *args, use_reentrant=False) if use_ckpt else body(lp, x, *args)
+    return x
 
 
 def lm_head_weight(params: Params, cfg) -> torch.Tensor:

@@ -9,13 +9,13 @@ This is deliberately not part of ``ModelConfig``: architecture configs are
 published facts; these are implementation choices.
 
 The port reads ``attn_score_f32``, ``q_block``, ``kv_block``,
-``decode_deferred_commit``, ``loss_logits_bf16``, ``norm_bf16_apply`` and
-``capacity_factor``. The sharding flags (``seq_parallel_activations``,
-``moe_shard_capacity``, ``moe_shard_both``, ``moe_explicit_a2a``,
-``moe_shardmap``, ``serve_resident_weights``) and ``ssd_chunk`` are kept as
-fields with the reference's defaults and change nothing yet: the port runs
-on one device, and the mesh paths that read them come with ROADMAP Queue 1
-item 11 (``ssd_chunk`` with the SSM family, item 10).
+``decode_deferred_commit``, ``loss_logits_bf16``, ``norm_bf16_apply``,
+``capacity_factor`` and ``ssd_chunk`` (``models/ssm.ssd_chunk``). The
+sharding flags (``seq_parallel_activations``, ``moe_shard_capacity``,
+``moe_shard_both``, ``moe_explicit_a2a``, ``moe_shardmap``,
+``serve_resident_weights``) are kept as fields with the reference's defaults
+and change nothing yet: the port runs on one device, and the mesh paths that
+read them come with ROADMAP Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -48,8 +48,7 @@ class TuningFlags:
     capacity_factor: Optional[float] = None
     # chunked CE loss: logits in bf16 (False = fp32 baseline)
     loss_logits_bf16: bool = False
-    # SSD chunk length override (0 = cfg.ssm_chunk); the SSM family is not
-    # ported yet
+    # SSD chunk length override (0 = cfg.ssm_chunk)
     ssd_chunk: int = 0
     # rms_norm: float32 only for the variance and the [B, S, 1] scale; the
     # full-width multiply stays in the compute dtype. Baseline: full fp32.

@@ -7,6 +7,8 @@ mode and their jnp oracles. Tolerances are those of the reference's kernel
 tests (``tests/test_kernels.py:21``): 2e-5 in float32, 2e-2 in bfloat16, for
 float32 sums taken in another order.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -196,8 +198,10 @@ def test_smoke_config_matches_reference(cfgs):
               "vocab_size", "activation", "norm_eps", "rope_theta", "sliding_window",
               "tie_embeddings", "qkv_bias", "use_qk_norm"):
         assert getattr(jc, f) == getattr(tc, f), f
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("zamba2-1.2b")  # an architecture the port does not serve yet
+    # the hybrid architecture, ported with the SSM and encoder-decoder
+    # families: its config equals the reference's, field for field
+    jz, tz = jax_config("zamba2-1.2b"), get_config("zamba2-1.2b")
+    assert dataclasses.asdict(tz) == dataclasses.asdict(jz)
 
 
 def test_rms_norm_and_rope(cfgs):

@@ -511,3 +511,96 @@ def test_cuda_train_steps_match_cpu(cuda):
     assert int(gpu.opt.step) == int(cpu.opt.step) == 6
     for (path, c), (_, g) in zip(named_leaves(cpu.params), named_leaves(gpu.params)):
         torch.testing.assert_close(g.cpu(), c, atol=2e-4, rtol=0, msg=str(path))
+
+
+# ------------------------------------------ the SSM, hybrid and encoder-decoder
+# families: flash_attention at their prefill shapes, and each family's smoke
+# train steps and decode on the card against the CPU
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nh,Sq,Skv,window,causal", [
+    (8, 32, 4608, 4608, 4096, True),  # zamba2-1.2b's prefill: the window, g = 1
+    (8, 32, 4616, 4616, 4096, True),  # its teacher-forced context: a ragged q tile
+    (32, 6, 1500, 1500, 0, False),  # whisper-tiny's encoder
+    (32, 6, 448, 1500, 0, False),  # whisper-tiny's cross-attention at its decoder length
+    (32, 6, 9, 9, 0, True),  # its teacher-forced decoder's self-attention
+    (32, 6, 9, 1500, 0, False),  # and cross-attention
+])
+def test_cuda_flash_attention_family_shapes(cuda, B, nh, Sq, Skv, window, causal):
+    """bf16 at full width, every lane against its own plain call (the whole
+    call's float32 scores would not fit the card at 4,608): each lane's
+    output reads only its own inputs."""
+    q, k, v = _flash_case(B, nh, nh, Sq, Skv, 64, torch.bfloat16, cuda, Sq + Skv + window)
+    got = ops.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    tol = ATTN_TOL[torch.bfloat16]
+    for b in range(B):
+        want = ref.flash_attention_ref(q[b : b + 1], k[b : b + 1], v[b : b + 1], causal=causal,
+                                       sliding_window=window)
+        torch.testing.assert_close(got[b : b + 1].float(), want.float(), atol=tol, rtol=tol,
+                                   msg=f"lane {b}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b", "whisper-tiny"])
+def test_cuda_family_matches_cpu(cuda, arch):
+    """Each family's smoke config at its published SSD chunk (128, 256; rows
+    of 256 tokens reach it), float32, no TF32: four train steps from one
+    state on the card and the CPU (losses within 1e-4 relative, parameters
+    within 2e-4, every loss and gradient norm finite), then a prefill and 8
+    decode steps with the CPU's trained weights on both (logits within 1e-4
+    of the largest, the CPU's tokens fed to both). The train step launches no
+    kernel; the prefills launch ``flash_attention`` where the family has
+    attention."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models import encdec, hybrid, ssm_lm
+    from repro_torch.training.optimizer import AdamWConfig, named_leaves, tree_map
+    from repro_torch.training.train_state import init_train_state, make_train_step, state_to
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    full = get_config(arch)
+    cfg = dataclasses.replace(full.smoke(), ssm_chunk=full.ssm_chunk)
+    cpu = init_train_state(cfg, 0, device="cpu")
+    gpu = state_to(cpu, cuda)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2))
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 256, 2, seed=17))
+    frames = (torch.randn((2, cfg.max_encoder_len, cfg.d_model),
+                          generator=torch.Generator().manual_seed(3))
+              if cfg.is_encoder_decoder else None)
+    ops.reset_launch_counts()
+    for s in range(4):
+        b = {k: torch.as_tensor(v) for k, v in data.batch_at(s).items()}
+        if frames is not None:
+            b["enc_embeds"] = frames
+        cpu, mc = step(cpu, b)
+        gpu, mg = step(gpu, {k: v.to(cuda) for k, v in b.items()})
+        assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-4)
+        for m in (mc, mg):
+            assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+    torch.cuda.synchronize()
+    assert not any(ops.launch_counts().values())
+    for (path, c), (_, g) in zip(named_leaves(cpu.params), named_leaves(gpu.params)):
+        torch.testing.assert_close(g.cpu(), c, atol=2e-4, rtol=0, msg=str(path))
+
+    # the decode paths on the same weights: the CPU's trained ones
+    mod = {"mamba2-130m": ssm_lm, "zamba2-1.2b": hybrid, "whisper-tiny": encdec}[arch]
+    prompt = torch.as_tensor(data.batch_at(9)["tokens"][:, :40])
+    params = {"cpu": cpu.params, "gpu": tree_map(lambda t: t.to(cuda), cpu.params)}
+    out = {}
+    for dev, p in params.items():
+        where = p["embed"].device
+        if frames is not None:
+            out[dev] = mod.prefill(p, frames.to(where), prompt.to(where), cfg, 48)
+        else:
+            out[dev] = mod.prefill(p, prompt.to(where), cfg, 48)
+    (lc, cc), (lg, cg) = out["cpu"], out["gpu"]
+    for i in range(9):
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4 * float(lc.abs().max()), rtol=0)
+        if i == 8:
+            break
+        tok = torch.argmax(lc, dim=-1)
+        lc, cc = mod.decode_step(params["cpu"], tok, cc, cfg)
+        lg, cg = mod.decode_step(params["gpu"], tok.to(cuda), cg, cfg)
+    torch.cuda.synchronize()
+    assert (ops.launch_counts()["flash_attention"] > 0) == (arch != "mamba2-130m")

@@ -146,20 +146,20 @@ def test_rms_norm_bf16_branch_matches_reference(bf16_apply):
 
 # ------------------------------------------------------------ configs
 def test_config_registry_matches_reference():
-    """Every architecture the port has equals the reference's, field for
-    field (dtypes by name), at full size and at smoke size; the others wait
-    for their ROADMAP item."""
-    assert set(ARCH_NAMES) < set(JAX_ARCHS)
-    assert {"qwen2.5-3b", "qwen2.5-32b", "nemotron-4-15b", "chameleon-34b"} <= set(ARCH_NAMES)
+    """The port has every architecture of the reference, each equal to the
+    reference's field for field (dtypes by name), at full size and at smoke
+    size; the two records have the same fields."""
+    assert set(ARCH_NAMES) == set(JAX_ARCHS)
     for name in ARCH_NAMES:
         for jc, tc in ((jax_config(name), get_config(name)),
                        (jax_config(name).smoke(), get_config(name).smoke())):
+            assert ({f.name for f in dataclasses.fields(tc)}
+                    == {f.name for f in dataclasses.fields(jc)})
             for f in dataclasses.fields(tc):
                 assert getattr(tc, f.name) == getattr(jc, f.name), (name, f.name)
             assert str(tc.pdtype).endswith(tc.param_dtype)
-    for name in set(JAX_ARCHS) - set(ARCH_NAMES):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-            get_config(name)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("not-an-arch")
 
 
 def test_tuning_flags_match_reference():

@@ -188,9 +188,16 @@ def test_decode_refuses_a_full_cache():
 
 
 def test_other_families_wait_for_their_item():
-    cfg = dataclasses.replace(get_config("yi-6b").smoke(), family="ssm")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+    """Every family of the reference is ported; an unknown family raises
+    ``ValueError``, as the reference's ``get_model`` does."""
+    for name in ("mamba2-130m", "zamba2-1.2b", "whisper-tiny"):
+        cfg = get_config(name).smoke()
+        assert get_model(cfg).cfg is cfg
+    cfg = dataclasses.replace(get_config("yi-6b").smoke(), family="unknown")
+    with pytest.raises(ValueError, match="unknown family"):
         get_model(cfg)
+    with pytest.raises(ValueError, match="unknown family"):
+        jax_model(dataclasses.replace(jax_config("yi-6b").smoke(), family="unknown"))
 
 
 def test_sliding_window_decode_follows_each_reference_branch():
