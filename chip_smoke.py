@@ -114,7 +114,9 @@ Phases, one line of numbers each:
      microbatch=4)`` on batches of 8 x 4,096 tokens from ``SyntheticTokens``
      through ``PrefetchIterator``: one warm-up and 4 timed steps on batch 0,
      each split into host (the batch's copy), forward + backward and the
-     optimizer; tokens/s, the model-FLOPs share of 989 TFLOP/s, one step
+     optimizer; tokens/s, the model-FLOPs share (``analysis.roofline``'s
+     ``model_flops_per_step`` of the step's rows over its time and 989
+     TFLOP/s; so for phases 19-21), one step
      profiled, peak memory; loss and grad norm finite, the loss falls, peak
      under 80 GiB;
  17. ``lm-decode``: the same model's prefill of 8 prompts of 1,024 tokens
@@ -178,14 +180,32 @@ Phases, one line of numbers each:
      at most 4 elements of the tied embedding (Adam's steps on gradients
      within float32's noise of zero); then a prefill and 8 decode steps,
      logits within 1e-4 of the largest, and on the card the prefill of the
-     tokens the decode consumed equal to its last step within 1e-4.
+     tokens the decode consumed equal to its last step within 1e-4;
+ 23. ``sharded-sweep``: phase 12's sweep (16 machines of 65,536 pages, 96
+     epochs) with exact counts (``sample_period`` 1, 4 KiB pages, 40 us
+     epochs) through ``run_sweep(devices=["cuda:0", "cpu"])``, 8 machines a
+     slice, and through ``devices=["cuda:0"]``: every record and phase
+     equal, machine-epochs/s of each, each slice's seconds on the dispatch
+     thread and their share of the wall;
+ 24. ``cost-count``: phase 16's step (qwen2.5-3b at full width and depth,
+     its batch 0 of 8 x 4,096 tokens in 4 microbatches) counted on the card
+     with ``analysis.hlo_cost.module_cost`` and
+     ``analysis.attribution.attribute`` (the contributions adding up),
+     priced with ``roofline.compute_terms`` against phase 16's step time,
+     the 15 largest contributions by bytes; the same model cut to 2 layers,
+     one train step of 1 x 256 tokens and the lm-decode prefill's 8 x 1,024
+     prompts, counted on the card and on the CPU (FLOPs and the kernels'
+     bytes equal); then the prefill at full depth on the card, the
+     counter's ``flash_attention`` calls equal to the launches
+     ``flash_tally`` splits by shape.
 Phases 12-16, 18 and the train steps of 19-22 launch none of the five
 kernels (fleet machines have no page pool; the train step's attention is
 ``blocked_attention``, which autograd differentiates); phase 17 launches
 ``flash_attention`` only, 36 times a prefill; the families' prefills launch
 only ``flash_attention`` (zamba2's 6 a prefill, whisper's encoder 4 and its
-teacher-forced decoder 8 more; mamba2's none). Phases 12-15 run with
-``vmap``'s batching-rule fallback warning as an error.
+teacher-forced decoder 8 more; mamba2's none); phase 23 launches none, phase
+24 ``flash_attention`` only (one a layer of each counted prefill). Phases
+12-15 and 23 run with ``vmap``'s batching-rule fallback warning as an error.
 Phase 2 also holds ``paged_attention`` and ``flash_attention`` against their
 plain versions, in float32 and bfloat16, at phase 5's shapes (flash at both
 tenants' prompt lengths, 1,024 and 512) and in bfloat16 at phase 7's (16
@@ -213,8 +233,14 @@ import warnings
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 bandwidth
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# the port's shape table and parameter counts; without the package beside
+# the script this import fails and the script prints no result
+from repro_torch.configs import LONG_CONTEXT_ARCHS, get_config, get_shape  # noqa: E402
+# H100 SXM published HBM3 bandwidth and dense bf16 tensor-core peak
+from repro_torch.analysis.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.analysis.roofline import PEAK_FLOPS as BF16_FLOPS  # noqa: E402
+
 F32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:21
 SEED = 20231201
@@ -2560,20 +2586,13 @@ def tuner_gpu_vs_cpu(torch, np) -> dict:
 
 # ------------------------------------------------------------------ phase 16
 # train-qwen25-3b: qwen2.5-3b at full width and depth on the train_4k cell's
-# 4,096-token rows (src/repro/configs/base.py, LM_SHAPES), 8 rows a step in
-# 4 microbatches, from SyntheticTokens through PrefetchIterator as
-# launch/train.py wires them
-TR_ARCH, TR_BATCH, TR_SEQ, TR_MICRO, TR_TIMED = "qwen2.5-3b", 8, 4096, 4, 4
-TR_PARAMS = 3_085_938_688
+# 4,096-token rows (the port's LM_SHAPES), 8 rows a step in 4 microbatches,
+# from SyntheticTokens through PrefetchIterator as launch/train.py wires them
+TR_ARCH, TR_BATCH, TR_MICRO, TR_TIMED = "qwen2.5-3b", 8, 4, 4
+TR_SEQ = get_shape("train_4k").seq_len
+TR_PARAMS = get_config(TR_ARCH).param_count()  # equal to the materialised tree's
 TR_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=100)
 TR_PEAK_GIB = 80.0
-
-
-def train_flops_per_token(cfg, n_params: int, seq: int) -> int:
-    """Model FLOPs a token of a train step: 6 N for the weights' products
-    (forward and backward) and 6 L S nh dh for causal attention's (half the
-    S x S pairs), without remat's second forward."""
-    return 6 * n_params + 6 * cfg.num_layers * seq * cfg.num_heads * cfg.d_head
 
 
 def train_qwen25(torch, np, device):
@@ -2581,18 +2600,21 @@ def train_qwen25(torch, np, device):
     from repro_torch.configs import get_config
 
     return train_cell(torch, np, device, get_config(TR_ARCH), batch=TR_BATCH, seq=TR_SEQ,
-                      micro=TR_MICRO, n_params=TR_PARAMS, tag="phase16", timed=TR_TIMED,
-                      flops_per_token=lambda cfg, n: train_flops_per_token(cfg, n, TR_SEQ))
+                      micro=TR_MICRO, n_params=TR_PARAMS, tag="phase16", timed=TR_TIMED)
 
 
 def train_cell(torch, np, device, cfg, *, batch: int, seq: int, micro: int, n_params: int,
-               flops_per_token, tag: str, timed: int, extra=None):
+               tag: str, timed: int, extra=None):
     """One warm-up step and ``timed`` timed steps on batch 0 of
     ``SyntheticTokens`` (through ``PrefetchIterator``, as launch/train.py
     wires it), each split into the batch's copy to the card (host), forward
     + backward and the optimizer (synchronised at the optimizer's start and
     end), then one step under the profiler. ``extra(cfg, batch)`` adds
-    inputs to the batch on the card (whisper's frame embeddings)."""
+    inputs to the batch on the card (whisper's frame embeddings). The
+    model-FLOPs share is ``roofline.model_flops_per_step`` of the step's
+    rows over its mean time and the card's bf16 peak."""
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import ShapeConfig
     from repro_torch.data.pipeline import DataConfig, PrefetchIterator, SyntheticTokens
     from repro_torch.launch.train import to_device
     from repro_torch.training import train_state as ts
@@ -2646,13 +2668,14 @@ def train_cell(torch, np, device, cfg, *, batch: int, seq: int, micro: int, n_pa
     timed = rows[1:]
     step_s = sum(r["step_ms"] for r in timed) / len(timed) / 1e3
     tok_s = batch * seq / step_s
-    fpt = flops_per_token(cfg, got_params)
+    model_flops = roofline.model_flops_per_step(
+        cfg, ShapeConfig(f"train_{seq}", seq, batch, "train"), 1)
     mean = {k: sum(r[k] for r in timed) / len(timed)
             for k in ("step_ms", "host_ms", "fwd_bwd_ms", "optimizer_ms")}
     del state, step, b, more
     return dict(params=got_params, batch=batch, seq=seq, microbatch=micro,
-                init_s=init_s, **mean, tokens_per_s=tok_s, flops_per_token=fpt,
-                model_flops_share=fpt * tok_s / BF16_FLOPS,
+                init_s=init_s, **mean, tokens_per_s=tok_s, model_flops=model_flops,
+                model_flops_share=model_flops / step_s / roofline.PEAK_FLOPS,
                 losses=";".join(f"{r['loss']:.5f}" for r in rows),
                 grad_norms=";".join(f"{r['grad_norm']:.4f}" for r in rows),
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30, **prof)
@@ -2916,12 +2939,14 @@ def train_gpu_vs_cpu(torch, np, device):
 # ------------------------------------------------------------------ phases 19-22
 # the SSM, hybrid and encoder-decoder families at full width and depth, bf16
 # weights from a seed and float32 AdamW moments. Training: the train_4k cell's
-# 4,096-token rows (src/repro/configs/base.py, LM_SHAPES), 8 of its 256 rows a
-# step (one card); whisper at its published 448-token decoder length, 32 rows
-# over 1,500 stub frames each
+# 4,096-token rows (the port's LM_SHAPES), 8 of its 256 rows a step (one
+# card); whisper at its published 448-token decoder length, 32 rows over 1,500
+# stub frames each. The parameters are the materialised trees' counts, which
+# differ from ``param_count`` for these three
+# (tests/test_torch_config_shapes.py pins each difference)
 FM_TRAIN = {  # arch -> (rows a step, tokens a row, microbatches, parameters)
-    "mamba2-130m": (8, 4096, 1, 128_983_488),
-    "zamba2-1.2b": (8, 4096, 4, 1_088_160_640),
+    "mamba2-130m": (8, TR_SEQ, 1, 128_983_488),
+    "zamba2-1.2b": (8, TR_SEQ, 4, 1_088_160_640),
     "whisper-tiny": (32, 448, 1, 36_448_128),
 }
 # decode: arch -> (lanes, prompt tokens, cache positions); whisper's prompt
@@ -2934,42 +2959,11 @@ FM_DECODE = {
 FM_STEPS, FM_FORCED, FM_TIMED = 128, 8, 4
 FM_TOL = ATTN_TOL["bfloat16"]
 FG_HANDOFF_TOL = 1e-4  # float32: the prefill of the consumed tokens against the decode
-# the reference's long_500k cell for mamba2-130m (src/repro/configs/base.py,
-# LM_SHAPES and LONG_CONTEXT_ARCHS): one lane, 524,288 tokens, then 32 steps,
-# against 32 steps after a 1,024-token prompt
-FM_LONG, FM_SHORT, FM_LONG_STEPS, FM_LONG_RATIO = 524_288, 1024, 32, 1.5
-
-
-def family_flops_per_token(cfg, n_params: int, seq: int) -> float:
-    """Model FLOPs a token of a train step, forward and backward, without
-    remat: 6 N for the weights' products (the hybrid's shared block counted
-    at each invocation); per SSD layer 3 (Q N + Q H P + 4 H P N) (the
-    within-chunk products over half of each chunk's Q x Q pairs, the state
-    products); causal attention's 6 S nh dh per invocation (S capped by the
-    window). Whisper: a row's work (the encoder over its 1,500 frames, the
-    cross keys and values over them, the decoder's tokens, the encoder's,
-    decoder's and cross attention) over the row's decoder tokens."""
-    nh, dh = cfg.num_heads, cfg.d_head
-    if cfg.family == "audio":
-        d, T, S = cfg.d_model, cfg.max_encoder_len, seq
-        attn = 4 * d * nh * dh
-        mlp = 2 * d * cfg.d_ff
-        n_enc = cfg.encoder_layers * (attn + mlp + 4 * d) + 2 * d
-        n_cross_kv = cfg.num_layers * 2 * d * nh * dh
-        n_dec = n_params - n_enc - n_cross_kv
-        row = 6 * (n_enc * T + n_cross_kv * T + n_dec * S)
-        row += 3 * nh * dh * (cfg.encoder_layers * 4 * T * T
-                              + cfg.num_layers * (2 * S * S + 4 * S * T))
-        return row / S
-    Q = min(cfg.ssm_chunk, seq)
-    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    ssd = 3 * cfg.num_layers * (Q * N + Q * H * P + 4 * H * P * N)
-    if cfg.family == "ssm":
-        return 6 * n_params + ssd
-    G, d = cfg.attn_invocations, cfg.d_model
-    shared = 4 * d * nh * dh + 2 * d * cfg.d_ff + 2 * d
-    S = min(seq, cfg.sliding_window or seq)
-    return 6 * (n_params + (G - 1) * shared) + ssd + 6 * G * S * nh * dh
+# the long_500k cell for mamba2-130m (the port's LM_SHAPES and
+# LONG_CONTEXT_ARCHS): one lane, 524,288 tokens, then 32 steps, against 32
+# steps after a 1,024-token prompt
+FM_LONG = get_shape("long_500k").seq_len
+FM_SHORT, FM_LONG_STEPS, FM_LONG_RATIO = 1024, 32, 1.5
 
 
 def stub_frames(torch, cfg, batch: int, device, seed: int = SEED):
@@ -2989,8 +2983,7 @@ def train_family(torch, np, device, arch: str, tag: str):
         def extra(cfg, batch):
             return {"enc_embeds": stub_frames(torch, cfg, batch, device)}
     return train_cell(torch, np, device, get_config(arch), batch=rows, seq=seq, micro=micro,
-                      n_params=n_params, tag=tag, timed=FM_TIMED, extra=extra,
-                      flops_per_token=lambda cfg, n: family_flops_per_token(cfg, n, seq))
+                      n_params=n_params, tag=tag, timed=FM_TIMED, extra=extra)
 
 
 def nbytes(tree) -> int:
@@ -3161,9 +3154,9 @@ def mamba_long(torch, np, device):
     grow with the position; the short lane's steps at each stage, beside
     the host's cost of a bare launch, tell what else moves the host-bound
     step."""
-    from repro_torch.configs import get_config
     from repro_torch.models.model import get_model
 
+    check("mamba2-130m" in LONG_CONTEXT_ARCHS, "mamba2-130m may run the long_500k cell")
     cfg = get_config("mamba2-130m")
     api = get_model(cfg)
     params = api.init(seed=SEED, device=device)
@@ -3480,6 +3473,222 @@ def family_phases(torch, np, device):
     return fam_launches, fam_flash
 
 
+# ------------------------------------------------------------------ phase 23
+def sharded_sweep(torch, np):
+    """Phase 23: sweep-64k's fleet split over the card and the CPU
+    (``devices=["cuda:0", "cpu"]``: 8 machines a slice) and on the card
+    alone (``["cuda:0"]``), with exact counts (``sample_period`` 1; 4 KiB
+    pages and 40 us epochs, so that exact counts stay inside the heat bins
+    and pages move): every record and phase equal between the two, the
+    machine-epochs/s of each, and each slice's seconds on the dispatch
+    thread (its tick, then its telemetry copy) as a share of the wall."""
+    from repro_torch.core.scenario import ScenarioSweep, run_sweep
+    from repro_torch.core.simulator import OPTANE
+    from repro_torch.kernels import ops
+    from repro_torch.launch.families import sweep_points, sweep_scenario
+
+    sc = sweep_scenario(FL_PAGES, FL_EPOCHS)
+    points = sweep_points(FL_MACHINES, FL_BUDGET)
+    out, runs = {}, {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for tag, devs in (("card", ["cuda:0"]), ("card_cpu", ["cuda:0", "cpu"])):
+        seen = {}
+        t0 = time.perf_counter()
+        res = run_sweep(
+            ScenarioSweep(scenario=sc, points=points), num_pages=FL_PAGES, fast_capacity=FL_FAST,
+            migration_budget=FL_BUDGET, max_tenants=FL_TENANTS, sample_period=1,
+            epoch_seconds=4e-5, machine=dataclasses.replace(OPTANE, page_bytes=4096),
+            policy_chunk=FL_CHUNK, devices=devs, on_fleet=lambda f: seen.setdefault("fleet", f))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fleet = seen["fleet"]
+        check([d.type for d in fleet.devices] == [torch.device(d).type for d in devs]
+              and res.devices == len(devs), f"{tag}: the fleet ran over {devs}: {fleet.devices}")
+        check(all(len(r.history) == FL_EPOCHS for r in res.results.values()),
+              f"{tag}: {FL_EPOCHS} records a machine")
+        runs[tag] = res
+        out.update({f"{tag}_wall_s": wall,
+                    f"{tag}_machine_epochs_per_s": FL_MACHINES * FL_EPOCHS / wall,
+                    f"{tag}_fleet_epoch_ms": wall / FL_EPOCHS * 1e3})
+        for i, d in enumerate(fleet.devices):
+            sec = fleet.slice_seconds[i]
+            out[f"{tag}_slice{i}_{d.type}_machines"] = fleet.num_padded // fleet.num_shards
+            out[f"{tag}_slice{i}_{d.type}_ms_per_epoch"] = sec / FL_EPOCHS * 1e3
+            out[f"{tag}_slice{i}_{d.type}_share"] = sec / wall
+    launches = ops.launch_counts()
+    card, mixed = runs["card"].results, runs["card_cpu"].results
+    hist = sum(text_of(card[p.name].history) == text_of(mixed[p.name].history) for p in points)
+    phases = sum(text_of(card[p.name].phases) == text_of(mixed[p.name].phases) for p in points)
+    moved = min(sum(r.migrated_pages for r in res.history) for res in card.values())
+    out.update(histories_equal=hist, phases_equal=phases, min_migrated=moved,
+               mixed_over_card_wall=out["card_cpu_wall_s"] / out["card_wall_s"])
+    check(hist == FL_MACHINES and phases == FL_MACHINES,
+          f"every machine's records and phases equal split over the card and the CPU and on "
+          f"the card alone: {hist}, {phases}")
+    check(moved > 0, f"pages move on every machine: {moved}")
+    check(not any(launches.values()), f"the fleet path launches no kernel: {launches}")
+    return out, launches
+
+
+# ------------------------------------------------------------------ phase 24
+# the cost count: phase 16's own step (qwen2.5-3b at full width and depth,
+# batch 0 of its 8 x 4,096 tokens in 4 microbatches) counted on the card and
+# priced by compute_terms against the step time phase 16 measured; then the
+# same model cut to CC_LAYERS layers, a CC_TRAIN (rows, tokens) train step
+# and the lm-decode prefill's 8 x 1,024, counted on the card and on the CPU
+# (small: the CPU runs the same calls), FLOPs and kernel bytes equal; then
+# the prefill at full depth on the card, counted against flash_tally
+CC_LAYERS, CC_TRAIN, CC_TOP = 2, (1, 256), 15
+
+
+def count_on(torch, fn, *args):
+    """(ModuleCost, contributions) of ``fn(*args)``, one call each."""
+    from repro_torch.analysis import attribution, hlo_cost
+
+    cost = hlo_cost.module_cost(fn, *args)
+    rows = attribution.attribute(fn, *args)
+    return cost, rows
+
+
+def count_step(torch, np, device, step_ms: float):
+    """Phase 24's first part: phase 16's step counted on the card,
+    ``roofline.compute_terms`` of the count against ``step_ms`` (phase
+    16's mean), and the top contributions by bytes."""
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import to_device
+    from repro_torch.training import train_state as ts
+    from repro_torch.training.optimizer import AdamWConfig
+
+    cfg = get_config(TR_ARCH)
+    state = ts.init_train_state(cfg, SEED, device=device)
+    step = ts.make_train_step(cfg, AdamWConfig(**TR_OPT), remat="block", microbatch=TR_MICRO)
+    batch = to_device(SyntheticTokens(DataConfig(cfg.vocab_size, TR_SEQ, TR_BATCH, seed=17))
+                      .batch_at(0), device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cost, rows = count_on(torch, step, state, batch)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    del state, step, batch
+    check(sum(r.flops for r in rows) == cost.flops,
+          "the step's contributions add up to its count's FLOPs")
+    check(not cost.kernel_calls, f"the train step calls no kernel: {dict(cost.kernel_calls)}")
+    shape = ShapeConfig(f"train_{TR_SEQ}", TR_SEQ, TR_BATCH, "train")
+    terms = roofline.compute_terms(cfg, shape, 1, cost.flops, cost.bytes, cost.coll_total)
+    check(0.5 < terms.useful_ratio < 1.0,
+          f"the counted FLOPs exceed the model's by remat's forward and the loss's "
+          f"recompute at most: useful ratio {terms.useful_ratio}")
+    step_s = step_ms / 1e3
+    out = dict(step_count_s=count_s, step_flops=cost.flops, step_bytes=cost.bytes,
+               step_coll_bytes=cost.coll_total, step_rows=len(rows), step_ms=step_ms,
+               compute_ms=terms.compute_s * 1e3, memory_ms=terms.memory_s * 1e3,
+               collective_ms=terms.collective_s * 1e3, dominant=terms.dominant,
+               model_flops=terms.model_flops, useful_ratio=terms.useful_ratio,
+               model_flops_share=terms.model_flops / step_s / roofline.PEAK_FLOPS,
+               counted_flops_share=cost.flops / step_s / roofline.PEAK_FLOPS,
+               bound_over_step=terms.step_time_s / step_s)
+    return out, sorted(rows, key=lambda r: -r.bytes)[:CC_TOP]
+
+
+def cost_count(torch, np, device, step_ms: float):
+    """Phase 24: ``count_step``; then ``hlo_cost.module_cost`` and
+    ``attribution.attribute`` of a train step and a prefill cut to
+    CC_LAYERS layers on the card and on the CPU, FLOPs and the kernels'
+    bytes equal; the counter's ``flash_attention`` calls against the
+    launches (``flash_tally``) at full depth."""
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.model import get_model
+    from repro_torch.training import train_state as ts
+    from repro_torch.training.optimizer import AdamWConfig
+
+    out, top = count_step(torch, np, device, step_ms)
+    free_device(torch)
+    full = get_config(TR_ARCH)
+    cfg = dataclasses.replace(full, num_layers=CC_LAYERS)
+    B, S = CC_TRAIN
+    cpu = torch.device("cpu")
+    train, pre = {}, {}
+    for tag, dev in (("cuda", device), ("cpu", cpu)):
+        state = ts.init_train_state(cfg, SEED, device=dev)
+        step = ts.make_train_step(cfg, AdamWConfig(**TR_OPT), remat="block")
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator(
+            device=dev).manual_seed(SEED), device=dev)
+        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+        t0 = time.perf_counter()
+        train[tag] = count_on(torch, step, state, batch)
+        out[f"small_train_count_{tag}_s"] = time.perf_counter() - t0
+        del state, step, batch
+        params = get_model(cfg).init(seed=SEED, device=dev)
+        prompts = torch.randint(0, cfg.vocab_size, (LD_BATCH, LD_PROMPT),
+                                generator=torch.Generator(device=dev).manual_seed(SEED + 1),
+                                device=dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        pre[tag] = count_on(torch, lambda p, t: transformer.prefill(p, t, cfg, LD_MAX),
+                            params, prompts)
+        torch.cuda.synchronize()
+        out[f"prefill_count_{tag}_s"] = time.perf_counter() - t0
+        out[f"prefill_{tag}_launches"] = ops.launch_counts()["flash_attention"]
+        del params, prompts
+        free_device(torch)
+    (tc, trows), (cc, crows) = train["cuda"], train["cpu"]
+    (tp, prows), (cp, _) = pre["cuda"], pre["cpu"]
+    for tag, c, rows in (("small_train", tc, trows), ("small_train_cpu", cc, crows),
+                         ("prefill", tp, prows), ("prefill_cpu", cp, pre["cpu"][1])):
+        check(sum(r.flops for r in rows) == c.flops,
+              f"{tag}: the contributions add up to the count's FLOPs")
+        out.update({f"{tag}_flops": c.flops, f"{tag}_bytes": c.bytes,
+                    f"{tag}_kernel_flops": c.kernel_flops, f"{tag}_kernel_bytes": c.kernel_bytes,
+                    f"{tag}_kernel_calls": dict(c.kernel_calls), f"{tag}_rows": len(rows)})
+    check(tc.flops == cc.flops and tc.kernel_bytes == cc.kernel_bytes == 0,
+          f"the train step counts the same FLOPs on the card and the CPU: {tc.flops} {cc.flops}")
+    check((tp.flops, tp.kernel_flops, tp.kernel_bytes) == (cp.flops, cp.kernel_flops,
+                                                           cp.kernel_bytes),
+          f"the prefill counts the same FLOPs and kernel bytes on the card and the CPU: "
+          f"{(tp.flops, tp.kernel_flops, tp.kernel_bytes)} {(cp.flops, cp.kernel_flops, cp.kernel_bytes)}")
+    # count_on runs each call twice (module_cost's and attribute's)
+    check(dict(tp.kernel_calls) == dict(cp.kernel_calls) == {"flash_attention": CC_LAYERS}
+          and out["prefill_cuda_launches"] == 2 * CC_LAYERS
+          and out["prefill_cpu_launches"] == 0,
+          f"one flash_attention call a layer, launched on the card only: {out}")
+    out["prefill_model_flops"] = roofline.model_flops_per_step(
+        cfg, ShapeConfig("prefill", LD_PROMPT, LD_BATCH, "prefill"), 1)
+
+    # the prefill at full depth on the card: the counter's calls are the launches
+    params = get_model(full).init(seed=SEED, device=device)
+    prompts = torch.randint(0, full.vocab_size, (LD_BATCH, LD_PROMPT), device=device,
+                            generator=torch.Generator(device=device).manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    tally, undo = flash_tally()
+    try:
+        deep = count_on(torch, lambda p, t: transformer.prefill(p, t, full, LD_MAX),
+                        params, prompts)[0]
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    out.update(deep_prefill_flops=deep.flops, deep_prefill_kernel_flops=deep.kernel_flops,
+               deep_prefill_kernel_bytes=deep.kernel_bytes,
+               deep_prefill_calls=deep.kernel_calls["flash_attention"],
+               deep_prefill_tally=sum(tally.values()),
+               deep_prefill_model_flops=roofline.model_flops_per_step(
+                   full, ShapeConfig("prefill", LD_PROMPT, LD_BATCH, "prefill"), 1))
+    check(deep.kernel_calls["flash_attention"] == full.num_layers
+          and sum(tally.values()) == launches["flash_attention"] == 2 * full.num_layers,
+          f"the counter's flash_attention calls equal the launches: {deep.kernel_calls} "
+          f"{tally} {launches}")
+    del params, prompts
+    return out, top, launches
+
+
 # --------------------------------------------------------------------- main
 def shape_entry(k: dict, path: str, launches) -> dict:
     """One measured shape of a kernel for the ``kernels`` line."""
@@ -3735,6 +3944,23 @@ def main() -> int:
     fam_launches, fam_flash = family_phases(torch, np, device)
     emit("clock after phase 22", elapsed_s=time.perf_counter() - t_main)
 
+    # phase 23, sharded-sweep: sweep-64k's fleet over the card and the CPU
+    sh23, sh23_launches = sharded_sweep(torch, np)
+    emit("phase23 sharded-sweep", **sh23)
+    emit("phase23 launches", **sh23_launches)
+    free_device(torch)
+
+    # phase 24, cost-count: the counter on the card and the CPU
+    cc24, top24, cc24_launches = cost_count(torch, np, device, tr["step_ms"])
+    emit("phase24 cost-count", **{k: (str(v).replace(" ", "") if isinstance(v, dict) else v)
+                                  for k, v in cc24.items()})
+    for i, r in enumerate(top24):
+        emit(f"phase24 top bytes {i}", bytes=r.bytes, flops=r.flops, comp=r.comp, kind=r.kind,
+             rtype=r.rtype, op_name=r.op_name.replace(" ", "_"))
+    emit("phase24 launches", **cc24_launches)
+    free_device(torch)
+    emit("clock after phase 24", elapsed_s=time.perf_counter() - t_main)
+
     sources = {
         "page_move": ("src/repro_torch/kernels/csrc/page_copy.cu",
                       "src/repro/kernels/page_copy.py:34"),
@@ -3811,6 +4037,10 @@ def main() -> int:
         for path, counts in fam_launches.items():
             if row["name"] != "flash_attention" or path not in ("lm-zamba2", "lm-whisper"):
                 row["shapes"].append({"path": path, "launches": counts[row["name"]]})
+        row["shapes"].extend([
+            {"path": "sharded-sweep", "launches": sh23_launches[row["name"]]},
+            {"path": "cost-count (full-depth prefill)", "launches": cc24_launches[row["name"]]},
+        ])
     by_name["flash_attention"]["shapes"] += [
         shape_entry(r, path, n) for path in ("lm-zamba2", "lm-whisper") for r, n in fam_flash[path]]
     print(json.dumps({"kernels": rows}), flush=True)
@@ -3822,5 +4052,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.exit(main())

@@ -1,4 +1,5 @@
-"""Architecture config registry of the port: ``get_config("yi-6b")``.
+"""Architecture config registry of the port: ``get_config("yi-6b")``, and
+the input shape cells: ``get_shape("train_4k")``.
 
 The port has every architecture of the reference: the dense, MoE and VLM
 decoder-only models (serving and training), the Mamba2 SSM, the hybrid and
@@ -8,7 +9,16 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from typing import Dict
+
+from repro_torch.configs.base import (
+    LM_SHAPES,
+    LONG_CONTEXT_ARCHS,
+    SHAPES_BY_NAME,
+    ModelConfig,
+    ShapeConfig,
+    applicable_shapes,
+)
 
 _ARCH_MODULES = {
     "yi-6b": "repro_torch.configs.yi_6b",
@@ -32,4 +42,22 @@ def get_config(name: str) -> ModelConfig:
     return importlib.import_module(_ARCH_MODULES[name]).CONFIG
 
 
-__all__ = ["ARCH_NAMES", "ModelConfig", "get_config"]
+def all_configs() -> Dict[str, ModelConfig]:
+    return {n: get_config(n) for n in ARCH_NAMES}
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES_BY_NAME[name]
+
+
+__all__ = [
+    "ARCH_NAMES",
+    "LM_SHAPES",
+    "LONG_CONTEXT_ARCHS",
+    "ModelConfig",
+    "ShapeConfig",
+    "all_configs",
+    "applicable_shapes",
+    "get_config",
+    "get_shape",
+]

@@ -1,15 +1,20 @@
 """Model architecture config (the port's copy of the reference's fields:
 decoder-only transformers, dense, MoE and the VLM backbone; the Mamba2 / SSD
-state-space model; the hybrid of both; the encoder-decoder).
+state-space model; the hybrid of both; the encoder-decoder) and the input
+shape cells.
 
 One ``ModelConfig`` per published architecture, built from its exact
 dimensions; ``smoke()`` derives the reduced config the CPU tests use, with
 the same rules as the reference's. Dtypes are torch dtypes.
+``param_count`` is the reference's analytic count, not the size of the
+parameter tree ``init`` materialises (see ``tests/test_torch_config_shapes.py``
+for where the two differ).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
@@ -103,6 +108,62 @@ class ModelConfig:
     def cdtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head)."""
+        d = self.d_model
+        n = self.vocab_size * d  # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * d  # lm head
+        if self.family in ("dense", "moe", "vlm"):
+            n += self.num_layers * (self._attn_params() + self._mlp_params() + 2 * d)
+        elif self.family == "ssm":
+            n += self.num_layers * (self._ssm_params() + d)
+        elif self.family == "hybrid":
+            n += self.num_layers * (self._ssm_params() + d)
+            # one shared attn + MLP block
+            n += self._attn_params() + self._mlp_params() + 2 * d
+        elif self.family == "audio":
+            enc = self.encoder_layers * (self._attn_params() + self._mlp_params() + 2 * d)
+            dec = self.num_layers * (2 * self._attn_params() + self._mlp_params() + 3 * d)
+            n += enc + dec
+        return n + d  # final norm
+
+    def active_param_count(self) -> int:
+        """Per-token active parameters (differs from the total for MoE)."""
+        if not self.is_moe:
+            return self.param_count()
+        d = self.d_model
+        dense = self.param_count() - self.num_layers * self._mlp_params()
+        act_mlp = (self.moe_top_k + self.num_shared_experts) * 3 * d * self.moe_d_ff
+        act_mlp += d * self.num_experts  # router
+        return dense + self.num_layers * act_mlp
+
+    def _attn_params(self) -> int:
+        d, dh = self.d_model, self.d_head
+        qkv = d * (self.num_heads * dh) + 2 * d * (self.num_kv_heads * dh)
+        if self.qkv_bias:
+            qkv += (self.num_heads + 2 * self.num_kv_heads) * dh
+        return qkv + self.num_heads * dh * d
+
+    def _mlp_params(self) -> int:
+        d = self.d_model
+        if self.is_moe:
+            per_expert = 3 * d * self.moe_d_ff
+            return (self.num_experts * per_expert + self.num_shared_experts * per_expert
+                    + d * self.num_experts)
+        if self.activation in ("swiglu", "geglu"):
+            return 3 * d * self.d_ff
+        return 2 * d * self.d_ff
+
+    def _ssm_params(self) -> int:
+        d, di, ns = self.d_model, self.ssm_d_inner, self.ssm_state
+        g, h = self.ssm_n_groups, self.ssm_heads
+        in_proj = d * (2 * di + 2 * g * ns + h)
+        conv = (di + 2 * g * ns) * self.ssm_conv_width
+        out = di * d
+        extra = 3 * h  # A_log, D, dt_bias
+        return in_proj + conv + out + extra + di  # + gate norm
+
     def smoke(self) -> "ModelConfig":
         """Reduced config of the same family for CPU tests."""
         return dataclasses.replace(
@@ -129,3 +190,41 @@ class ModelConfig:
             param_dtype="float32",
             compute_dtype="float32",
         )
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell (assigned per architecture)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+LM_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in LM_SHAPES}
+
+# Archs allowed to run the sub-quadratic long-context cell.
+LONG_CONTEXT_ARCHS = ("zamba2-1.2b", "mamba2-130m")
+
+
+def applicable_shapes(config: ModelConfig) -> Tuple[ShapeConfig, ...]:
+    """Shape cells applicable to an arch: pure full-attention archs skip the
+    500k decode."""
+    return tuple(s for s in LM_SHAPES
+                 if s.name != "long_500k" or config.name in LONG_CONTEXT_ARCHS)

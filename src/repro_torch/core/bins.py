@@ -103,3 +103,40 @@ def accumulate_and_count(
     eff_new = torch.where(~touched & cooled_pg, eff_new >> 1, eff_new)
     eff_new = torch.where(pages.owner >= 0, eff_new, torch.zeros_like(eff_new))
     return pages2, tenants2, cooled, eff_new
+
+
+def accumulate_samples(
+    pages: PageState,
+    tenants: TenantState,
+    sampled: torch.Tensor,  # i64[P] (u32 values) sampled accesses this epoch
+    num_bins,
+) -> Tuple[PageState, TenantState, torch.Tensor]:
+    """Compatibility wrapper around :func:`accumulate_and_count`; returns
+    (pages, tenants, cooled bool[T])."""
+    pages2, tenants2, cooled, _ = accumulate_and_count(pages, tenants, sampled, num_bins)
+    return pages2, tenants2, cooled
+
+
+def count_histogram(
+    values: torch.Tensor,  # integer [P] per-page bucket keys (clamped to num_buckets-1)
+    owner: torch.Tensor,  # integer [P] tenant slot; entries with mask False ignored
+    mask: torch.Tensor,  # bool[P] which pages participate
+    num_buckets: int,
+    max_tenants: int,
+) -> torch.Tensor:
+    """[T, num_buckets] int32 page counts per (tenant, bucket), built by one
+    scatter-add in O(P); prefix sums over the bucket axis then give exact
+    victim ranks without a sort."""
+    key = torch.clamp(values.to(torch.int64), max=num_buckets - 1)
+    flat = torch.where(mask, owner.to(torch.int64) * num_buckets + key,
+                       max_tenants * num_buckets)
+    hist = torch.zeros(max_tenants * num_buckets + 1, dtype=torch.int32, device=flat.device)
+    hist = hist.scatter_add(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    return hist[:-1].reshape(max_tenants, num_buckets)
+
+
+def heat_histogram(pages: PageState, tenants: TenantState, num_bins: int,
+                   max_tenants: int) -> torch.Tensor:
+    """[T, num_bins] page counts per (tenant, bin): the heat gradient."""
+    b = bin_of(effective_count(pages, tenants), num_bins)
+    return count_histogram(b, pages.owner, pages.owner >= 0, num_bins, max_tenants)

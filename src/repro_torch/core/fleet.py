@@ -25,13 +25,23 @@ Surface:
 
   * :func:`fleet_multi_epoch` - the batched tick on stacked states.
   * :class:`FleetManager` - K :class:`CentralManager` control planes over
-    one stacked state, with dirty tracking (a dispatch with no control-plane
-    operation in between uploads nothing), lazily parked slices, inert
-    padding, an asynchronous dispatch thread with supervision hooks, and
-    machine failure and recovery.
+    one stacked state per device slice, with dirty tracking (a dispatch with
+    no control-plane operation in between uploads nothing), lazily parked
+    slices, inert padding, an asynchronous dispatch thread with supervision
+    hooks, and machine failure and recovery.
 
-The machine axis is not split over several cards here: ``devices`` takes
-``None`` or ``1``.
+Sharding: ``FleetManager(devices=[...])`` splits the padded machine axis
+into one contiguous slice per device and runs :func:`fleet_multi_epoch` on
+each slice on its device (the card slices first, so the card's queued
+work runs while the CPU slices compute; the host work of the slices runs
+one after another on the dispatch thread), then gathers the telemetry in
+machine order.
+No reduction crosses a machine, so every machine's rows equal the unsharded
+path's. Each machine's deviates are still drawn from its own generator on
+its own device and carried to its slice; a slice on another device type
+than its machines runs the same integer arithmetic, but its float32
+roundings are that device's, so a fleet split between the card and the CPU
+is held bit-equal to the machines' own runs with exact sampling.
 """
 from __future__ import annotations
 
@@ -56,7 +66,6 @@ from repro_torch.core.types import (
     OwnerSegments,
     PolicyParams,
     PolicyState,
-    segments_build_host,
     state_nbytes,
 )
 
@@ -108,10 +117,57 @@ def stack_states(states: Sequence[PolicyState]) -> PolicyState:
     return policy._stack([s._replace(rng=None) for s in states])
 
 
-def machine_slice(fstate: PolicyState, i: int, rng=None) -> PolicyState:
-    """Machine ``i``'s row of a stacked state, copied (the stack is
-    updated in place later), with ``rng`` as its generator."""
-    return _map(lambda a: a[i].clone(), fstate._replace(rng=None))._replace(rng=rng)
+def machine_slice(fstate: PolicyState, i: int, rng=None, device=None) -> PolicyState:
+    """Machine ``i``'s row of a stacked state, copied to ``device`` (default:
+    the stack's; the stack is updated in place later), with ``rng`` as its
+    generator."""
+    return _map(lambda a: a[i].to(device or a.device, copy=True),
+                fstate._replace(rng=None))._replace(rng=rng)
+
+
+def _to(tree, device):
+    return _map(lambda a: a.to(device), tree)
+
+
+def _cat(trees):
+    """Leafwise ``torch.cat`` along the machine axis of same-shaped trees
+    (one tree comes back as it is)."""
+    if len(trees) == 1 or trees[0] is None:
+        return trees[0]
+    if isinstance(trees[0], torch.Tensor):
+        return torch.cat(trees)
+    return _rebuild(trees[0], [_cat(list(xs)) for xs in zip(*trees)])
+
+
+def resolve_devices(devices, machine_device: torch.device) -> List[torch.device]:
+    """The fleet's slice devices: ``None`` or ``1`` is the machines' device;
+    an int n is ``cuda:0`` .. ``cuda:n-1`` (a ``ValueError`` when fewer are
+    visible); a sequence names each device."""
+    if devices is None or (isinstance(devices, int) and devices == 1):
+        return [machine_device]
+    if isinstance(devices, int):
+        if devices < 1:
+            raise ValueError(f"devices must be >= 1, got {devices}")
+        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if devices > visible:
+            raise ValueError(f"requested {devices} devices, only {visible} CUDA devices visible")
+        return [torch.device("cuda", i) for i in range(devices)]
+    devs = [torch.device(d) for d in devices]
+    if not devs:
+        raise ValueError("devices must name at least one device")
+    return devs
+
+
+@dataclasses.dataclass
+class _Slice:
+    """One device's contiguous rows [lo, hi) of the padded machine axis,
+    with their stacked state and params on that device."""
+
+    device: torch.device
+    lo: int
+    hi: int
+    fstate: Optional[PolicyState] = None
+    fparams: Optional[PolicyParams] = None
 
 
 def _batch_dims(tree):
@@ -339,14 +395,19 @@ class FleetManager:
     pool; the knobs may differ. Plan buffers take the fleet-wide largest
     budget; a machine's lists are its own, padded with -1.
 
-    ``devices``: ``None`` or ``1`` (the machines' device). ``pad_to`` pads
-    K up to a multiple with inert machines (no tenants, no backlog) whose
-    rows every result drops; a sharded fleet needs that padding.
+    ``devices`` (:func:`resolve_devices`): ``None`` or ``1`` runs one slice
+    on the machines' device; an int n splits over ``cuda:0`` ..
+    ``cuda:n-1``; a sequence of devices splits over those, one contiguous
+    slice of machines each (the module docstring says when a mixed list is
+    bit-equal). ``pad_to`` (default: the device count) pads K up to a
+    multiple with inert machines (no tenants, no backlog) whose rows every
+    result drops; the padded count must divide over the devices.
 
     Dirty tracking: after a dispatch each machine's state is a lazy slice
-    of the stack. Only machines whose control plane fired since (a state
-    setter or a pending ``OwnerSegments`` rebuild) are uploaded, into their
-    rows with ``index_copy_``; ``upload_stats`` counts them.
+    of its device slice's stack. Only machines whose control plane fired
+    since (a state setter or a pending ``OwnerSegments`` rebuild) are
+    uploaded, into their rows of their slice with ``index_copy_``;
+    ``upload_stats`` counts them.
     """
 
     def __init__(
@@ -368,29 +429,29 @@ class FleetManager:
                     "pool-backed data planes are per-machine host objects; run them on a "
                     "single CentralManager"
                 )
-        if devices is not None and devices != 1 and not (
-            isinstance(devices, (list, tuple)) and len(devices) == 1
-        ):
-            raise NotImplementedError(
-                "a fleet over more than one device is not ported yet "
-                "(ROADMAP.md Queue 1 item 8, the sharded fleet)"
-            )
         self.device = first.device
+        self.devices = resolve_devices(devices, self.device)
         self.num_pages = first.num_pages
         self.max_tenants = first.max_tenants
         self.queue_size = first.queue_size
         self.exact_sampling = first.exact_sampling
         self.plan_size = max(m.plan_size for m in self.machines)
-        self.num_shards = 1
+        self.num_shards = len(self.devices)
         K = len(self.machines)
-        multiple = 1 if pad_to is None else int(pad_to)
+        multiple = self.num_shards if pad_to is None else int(pad_to)
         if multiple < 1:
             raise ValueError("pad_to must be >= 1")
         self.num_padded = K + (-K) % multiple
-        # dirty tracking: the cached stack and each machine's params object
-        # as of its last upload; each row's generator (None: inert or down)
-        self._fstate: Optional[PolicyState] = None
-        self._fparams: Optional[PolicyParams] = None
+        if self.num_padded % self.num_shards:
+            raise ValueError(
+                f"padded machine count {self.num_padded} must divide over {self.num_shards} "
+                "devices (pad_to must be a multiple of the device count)"
+            )
+        per = self.num_padded // self.num_shards
+        # dirty tracking: each slice's cached stack and each machine's params
+        # object as of its last upload; each row's generator (None: inert or
+        # down)
+        self._slices = [_Slice(d, s * per, (s + 1) * per) for s, d in enumerate(self.devices)]
         self._written_params: List[object] = [None] * K
         self._rngs: List[Optional[torch.Generator]] = [None] * K
         self._inert_state: Optional[PolicyState] = None
@@ -418,6 +479,8 @@ class FleetManager:
         # host seconds: stacking and uploads, drawing the deviates, launching
         # the batched tick, and the telemetry copy (which waits for it)
         self.phase_seconds = {"assemble": 0.0, "draw": 0.0, "tick": 0.0, "transfer": 0.0}
+        # the dispatch thread's seconds per slice: its tick, then its copy
+        self.slice_seconds = [0.0] * self.num_shards
 
     @property
     def num_machines(self) -> int:
@@ -438,10 +501,8 @@ class FleetManager:
                 self.num_pages, self.max_tenants, seed=0, queue_size=self.queue_size,
                 device=self.device,
             )
-            host = segments_build_host(np.full((self.num_pages,), -1, np.int32), self.max_tenants)
-            self._inert_state = state._replace(
-                rng=None, segs=OwnerSegments.from_host(*host, device=self.device)
-            )
+            self._inert_state = state._replace(rng=None, segs=OwnerSegments.build(
+                np.full((self.num_pages,), -1, np.int32), self.max_tenants, self.device))
         return self._inert_state
 
     def _check_dispatch_error(self) -> None:
@@ -450,20 +511,26 @@ class FleetManager:
                 f"fleet dispatch worker failed: {self._dispatch_error!r}"
             ) from self._dispatch_error
 
-    def _join(self) -> Optional[PolicyState]:
-        """Adopt the in-flight dispatch's stacked state: the pipeline's sync
+    def _join(self) -> None:
+        """Adopt the in-flight dispatch's stacked states: the pipeline's sync
         point, which waits for the worker's tick and telemetry copy."""
         self._check_dispatch_error()
         if self._inflight is not None:
             try:
-                fstate, _host = self._inflight.result()
+                fstates, _host = self._inflight.result()
             except concurrent.futures.CancelledError:
                 raise
             except BaseException as e:
                 raise DispatchError(f"fleet dispatch failed: {e!r}") from e
-            self._fstate = fstate
+            for sl, f in zip(self._slices, fstates):
+                sl.fstate = f
             self._inflight = None
-        return self._fstate
+
+    def _machine_state(self, i: int) -> PolicyState:
+        """Machine ``i``'s row of its slice's stack, on the machine's device."""
+        self._join()
+        sl = self._slices[i // (self.num_padded // self.num_shards)]
+        return machine_slice(sl.fstate, i - sl.lo, self._rngs[i], self.device)
 
     def _row_rng(self, i: int, state: PolicyState):
         return None if i in self._parked else state.rng
@@ -475,32 +542,38 @@ class FleetManager:
         t0 = time.perf_counter()
         K = len(self.machines)
         pad = self.num_padded - K
-        dirty = [
-            i for i, m in enumerate(self.machines)
-            if self._fstate is None or self._machine_dirty(m)
-        ]
+        fresh = self._slices[0].fstate is None
+        dirty = [i for i, m in enumerate(self.machines) if fresh or self._machine_dirty(m)]
         for i in dirty:
             if self.machines[i]._segs_owner is not None:
                 self.upload_stats["seg_rebuilds"] += 1
             self.machines[i]._ensure_segs()
-        if self._fstate is None or len(dirty) == K:
+        if fresh or len(dirty) == K:
             states = [m._state for m in self.machines]
             self._rngs = [self._row_rng(i, s) for i, s in enumerate(states)]
-            self._fstate = stack_states(states + [self._make_inert_state()] * pad)
+            states += [self._make_inert_state()] * pad
+            for sl in self._slices:
+                sl.fstate = _to(stack_states(states[sl.lo : sl.hi]), sl.device)
             self.upload_stats["restacked_machines"] += K
         elif dirty:
-            rows = [self.machines[i]._state for i in dirty]
-            for i, s in zip(dirty, rows):
-                self._rngs[i] = self._row_rng(i, s)
-            idx = torch.as_tensor(dirty, dtype=torch.int64, device=self.device)
-            _map2(lambda F, r: F.index_copy_(0, idx, r), self._fstate, stack_states(rows))
+            for i in dirty:
+                self._rngs[i] = self._row_rng(i, self.machines[i]._state)
+            for sl in self._slices:
+                mine = [i for i in dirty if sl.lo <= i < sl.hi]
+                if not mine:
+                    continue
+                rows = _to(stack_states([self.machines[i]._state for i in mine]), sl.device)
+                idx = torch.as_tensor([i - sl.lo for i in mine], dtype=torch.int64,
+                                      device=sl.device)
+                _map2(lambda F, r: F.index_copy_(0, idx, r), sl.fstate, rows)
             self.upload_stats["restacked_machines"] += len(dirty)
-        params_dirty = self._fparams is None or any(
+        params_dirty = self._slices[0].fparams is None or any(
             m.params is not self._written_params[i] for i, m in enumerate(self.machines)
         )
         if params_dirty:
             plist = [m.params for m in self.machines] + [self.machines[0].params] * pad
-            self._fparams = stack_params(plist, self.device)
+            for sl in self._slices:
+                sl.fparams = stack_params(plist[sl.lo : sl.hi], sl.device)
         if not dirty and not params_dirty:
             self.upload_stats["clean_dispatches"] += 1
         self.phase_seconds["assemble"] += time.perf_counter() - t0
@@ -511,7 +584,7 @@ class FleetManager:
         joined, until a control-plane or telemetry path reads a machine."""
 
         def slicer(i: int) -> Callable[[], PolicyState]:
-            return lambda: machine_slice(self._join(), i, self._rngs[i])
+            return lambda: self._machine_state(i)
 
         for i, m in enumerate(self.machines):
             m._set_fleet_state(slicer(i))
@@ -568,14 +641,16 @@ class FleetManager:
             exact_sampling=self.exact_sampling, collect_plans=collect_plans,
             trim_stats=trim_stats,
         )
-        fstate_in, fparams_in = self._fstate, self._fparams
+        # the card slices first: their ticks are queued on the card before
+        # the CPU slices' ticks take the thread
+        order = sorted(range(self.num_shards), key=lambda s: self.devices[s].type != "cuda")
+        slices = [dataclasses.replace(sl) for sl in self._slices]
         hb = self.heartbeat
         chaos_fail = self._chaos_fail_n > 0
         if chaos_fail:
             self._chaos_fail_n -= 1
         chaos_delay = self._chaos_delay_s
-        dev = self.device
-        seconds = self.phase_seconds
+        seconds, slice_seconds = self.phase_seconds, self.slice_seconds
 
         def work():
             if hb is not None:
@@ -585,19 +660,30 @@ class FleetManager:
             if chaos_fail:
                 raise RuntimeError("injected dispatch failure (chaos hook)")
             t0 = time.perf_counter()
-            c = None
-            if cn is not None:
-                c = torch.as_tensor(
-                    cn.astype(np.uint32, copy=False).astype(np.int64), device=dev
+            c = None if cn is None else cn.astype(np.uint32, copy=False).astype(np.int64)
+            outs = [None] * len(slices)
+            for s in order:
+                sl = slices[s]
+                t = time.perf_counter()
+                outs[s] = fleet_multi_epoch(
+                    sl.fstate, sl.fparams,
+                    None if c is None else torch.as_tensor(c[sl.lo : sl.hi], device=sl.device),
+                    z=None if z is None else z[sl.lo : sl.hi].to(sl.device), **kw,
                 )
-            fstate, plans, stats, flagged = fleet_multi_epoch(fstate_in, fparams_in, c, z=z, **kw)
+                slice_seconds[s] += time.perf_counter() - t
             t1 = time.perf_counter()
-            host = _map(lambda a: a.cpu(), (stats, flagged, plans))
+            host = [None] * len(slices)
+            for s in order:
+                t = time.perf_counter()
+                _fstate, plans, stats, flagged = outs[s]
+                host[s] = _map(lambda a: a.cpu(), (stats, flagged, plans))
+                slice_seconds[s] += time.perf_counter() - t
+            host = _cat(host)
             seconds["tick"] += t1 - t0
             seconds["transfer"] += time.perf_counter() - t1
             if hb is not None:
                 hb.beat(0)
-            return fstate, host
+            return [o[0] for o in outs], host
 
         if inline:
             fut: concurrent.futures.Future = concurrent.futures.Future()
@@ -727,7 +813,8 @@ class FleetManager:
         """Bytes of the stacked state in the reference's packed layout,
         padding rows and each row's 8-byte PRNG key included."""
         self._assemble()
-        return state_nbytes(self._fstate) + _REF_RNG_BYTES * self.num_padded
+        return (sum(state_nbytes(sl.fstate) for sl in self._slices)
+                + _REF_RNG_BYTES * self.num_padded)
 
     def stacked_placement(self) -> Tuple[np.ndarray, np.ndarray]:
         """(tier[K, P], owner[K, P]) of every machine in one copy per leaf,
@@ -735,10 +822,11 @@ class FleetManager:
         machine changed since the last dispatch (its row is stale)."""
         K = len(self.machines)
         self._join()
-        clean = self._fstate is not None and not any(m._mutated for m in self.machines)
+        clean = self._slices[0].fstate is not None and not any(
+            m._mutated for m in self.machines)
         if clean:
-            tier = self._fstate.pages.tier[:K].cpu().numpy()
-            owner = self._fstate.pages.owner[:K].cpu().numpy()
+            tier = _cat([sl.fstate.pages.tier.cpu() for sl in self._slices])[:K].numpy()
+            owner = _cat([sl.fstate.pages.owner.cpu() for sl in self._slices])[:K].numpy()
             for i, m in enumerate(self.machines):
                 m._snap = {"tier": tier[i], "owner": owner[i]}
             return tier, owner

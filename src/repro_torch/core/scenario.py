@@ -1160,7 +1160,8 @@ def run_sweep(
     Builds one ``CentralManager`` per sweep point on ``device`` (``None``:
     the card; pass ``"cpu"`` to run on the CPU) with the point's knobs,
     wraps them in a ``core.fleet.FleetManager`` (``devices``: ``None`` or
-    ``1``) and drives the shared event schedule: at every phase boundary
+    ``1`` for one slice on ``device``, an int or a list of devices to split
+    the machines over, see ``core.fleet.resolve_devices``) and drives the shared event schedule: at every phase boundary
     the events fire on each machine's simulator (control-plane host
     operations), and the epochs between boundaries run in chunks through
     the fleet.

@@ -197,6 +197,16 @@ class OwnerSegments(NamedTuple):
 
         return cls(order=up(order), inv=up(inv), start=up(start))
 
+    @classmethod
+    def build(cls, owner, max_tenants: int, device=None) -> "OwnerSegments":
+        """Host rebuild from an owner array (numpy or a tensor), on
+        ``device`` (default: the owner tensor's, else the CPU)."""
+        if isinstance(owner, torch.Tensor):
+            device = owner.device if device is None else device
+            owner = owner.cpu().numpy()
+        host = segments_build_host(owner, max_tenants)
+        return cls.from_host(*host, device="cpu" if device is None else device)
+
 
 def segments_build_host(owner, max_tenants: int):
     """From-scratch ``(order, inv, start)`` host arrays for an owner array
@@ -289,6 +299,11 @@ class MigrationQueue(NamedTuple):
     @property
     def size(self) -> int:
         return self.page.shape[0]
+
+    @property
+    def depth(self) -> torch.Tensor:
+        """Occupied slots (0-d int64 tensor on the queue's device)."""
+        return (self.page >= 0).sum()
 
 
 class QueueStats(NamedTuple):

@@ -4,12 +4,25 @@ A CUDA tensor launches the hand-written kernel (or raises: a missing nvcc,
 a failed build and a failed launch all surface as exceptions). A CPU tensor
 takes the plain PyTorch version in ``ref.py``. There is no environment
 override and no fallback from one to the other.
+
+Cost counting (``repro_torch.analysis.hlo_cost``): while a cost counter
+is on the dispatch-mode stack, each entry point reports its kernel's
+analytic FLOPs and HBM bytes, computed from its shapes (and, where the work
+depends on the data, from these inputs) by the ``*_cost`` functions below,
+and the counter ignores the operations inside the call. A counted call
+therefore reads the same whichever implementation runs: the CUDA kernel,
+launched through ctypes where no dispatch mode sees it, or the plain
+version's step-by-step arithmetic. The counter is found on the mode stack,
+which the autograd engine carries to the thread that runs a backward, so an
+entry point called inside a backward is counted on the card as on the CPU.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hot_bins as _hb
@@ -26,41 +39,120 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for tensors on {t.device}")
 
 
+def _cost_sink():
+    """The innermost cost counter on the dispatch-mode stack (a mode with
+    ``counts_kernels`` set and ``kernel(name, cost, launch)``, which calls
+    ``cost()`` -> (flops, bytes) and ``launch()`` with its own counting
+    suspended and returns what ``launch`` returns), or None."""
+    if not torch._C._len_torch_dispatch_stack():
+        return None
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if getattr(mode, "counts_kernels", False):
+            return mode
+    return None
+
+
+def _run(name: str, on: torch.Tensor, kernel: Callable, plain: Callable,
+         cost: Callable[..., Tuple[float, float]], *args, **kw):
+    """``kernel(*args, **kw)`` when ``on`` lies on the card, else
+    ``plain(*args, **kw)``; under a cost counter, reported as one call of
+    ``name`` costing ``cost(*args, **kw)``."""
+    fn = kernel if _on_cuda(on) else plain
+    sink = _cost_sink()
+    if sink is None:
+        return fn(*args, **kw)
+    return sink.kernel(name, lambda: cost(*args, **kw), lambda: fn(*args, **kw))
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def hot_bins_cost(page_ids, counts_in, num_bins: int = 6) -> Tuple[float, float]:
+    """No floating-point work; the ids read, the counts read and written and
+    the bins written."""
+    return 0.0, float(_nbytes(page_ids) + 3 * counts_in.numel() * 4)
+
+
+def page_copy_cost(src_pool, dst_pool, src_ids, dst_ids) -> Tuple[float, float]:
+    """Every entry's row read and written (padding entries write the trash
+    row), and the ids."""
+    row = dst_pool[0].numel() * dst_pool.element_size()
+    return 0.0, float(2 * src_ids.numel() * row + _nbytes(src_ids) + _nbytes(dst_ids))
+
+
+def page_move_cost(pool, src_ids, dst_ids) -> Tuple[float, float]:
+    """The real entries' rows (ids that differ, both in range) read and
+    written once, and the ids."""
+    rows = pool.shape[0]
+    s, d = src_ids.to(torch.int64), dst_ids.to(torch.int64)
+    real = int(((s != d) & (s >= 0) & (s < rows) & (d >= 0) & (d < rows)).sum())
+    row = pool[0].numel() * pool.element_size()
+    return 0.0, float(2 * real * row + _nbytes(src_ids) + _nbytes(dst_ids))
+
+
+def paged_attention_cost(q, k_pages, v_pages, block_tables, seq_lens) -> Tuple[float, float]:
+    """4 nh dh flops a valid key (scores and the product with V); the valid
+    K and V rows of each lane's pages, q, the output, tables and lengths."""
+    B, nh, dh = q.shape
+    page, nkv = k_pages.shape[1], k_pages.shape[2]
+    t, n = block_tables.cpu().numpy(), seq_lens.cpu().numpy().astype(np.int64)
+    p = np.arange(t.shape[1])[None, :]
+    valid = int((np.clip(n[:, None] - p * page, 0, page) * (t >= 0)).sum())
+    nbytes = (2 * valid * nkv * dh * k_pages.element_size() + 2 * _nbytes(q)
+              + _nbytes(block_tables) + _nbytes(seq_lens))
+    return 4.0 * nh * dh * valid, float(nbytes)
+
+
+def attention_pairs(Sq: int, Skv: int, causal: bool, sliding_window: int) -> int:
+    """(query, key) pairs the masks of ``ref.flash_attention_ref`` keep:
+    queries at positions Skv - Sq + i, keys at or before them when causal,
+    within the last ``sliding_window`` positions when one is set."""
+    pos = np.arange(Sq, dtype=np.int64) + (Skv - Sq)
+    hi = np.minimum(pos, Skv - 1) if causal else np.full(Sq, Skv - 1, np.int64)
+    lo = np.maximum(pos - sliding_window + 1, 0) if sliding_window else np.zeros(Sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_attention_cost(q, k, v, *, causal: bool = True,
+                         sliding_window: int = 0) -> Tuple[float, float]:
+    """4 dh flops a kept (query, key) pair and head (QK^T and PV); q, k, v
+    read and the output written once."""
+    B, nh, Sq, dh = q.shape
+    pairs = attention_pairs(Sq, k.shape[2], causal, sliding_window)
+    return 4.0 * B * nh * dh * pairs, float(2 * _nbytes(q) + _nbytes(k) + _nbytes(v))
+
+
 def hot_bins(page_ids: torch.Tensor, counts_in: torch.Tensor, *, num_bins: int = 6):
     """(counts_out i32[P], bins i32[P]); see ``ref.hot_bins_ref``."""
-    if _on_cuda(counts_in):
-        return _hb.hot_bins(page_ids, counts_in, num_bins=num_bins)
-    return ref.hot_bins_ref(page_ids, counts_in, num_bins)
+    return _run("hot_bins", counts_in, _hb.hot_bins, ref.hot_bins_ref, hot_bins_cost,
+                page_ids, counts_in, num_bins=num_bins)
 
 
 def page_copy(src_pool, dst_pool, src_ids, dst_ids):
     """In place ``dst_pool[dst_ids] = src_pool[src_ids]``; returns dst_pool."""
-    if _on_cuda(dst_pool):
-        return _pc.page_copy(src_pool, dst_pool, src_ids, dst_ids)
-    return ref.page_copy_ref(src_pool, dst_pool, src_ids, dst_ids)
+    return _run("page_copy", dst_pool, _pc.page_copy, ref.page_copy_ref, page_copy_cost,
+                src_pool, dst_pool, src_ids, dst_ids)
 
 
 def page_move(pool, src_ids, dst_ids):
     """In place intra-pool moves with gather semantics; returns pool."""
-    if _on_cuda(pool):
-        return _pc.page_move(pool, src_ids, dst_ids)
-    return ref.page_move_ref(pool, src_ids, dst_ids)
+    return _run("page_move", pool, _pc.page_move, ref.page_move_ref, page_move_cost,
+                pool, src_ids, dst_ids)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
     """[B, nh, dh] one-token decode attention over a block table of pages;
     see ``ref.paged_attention_ref``."""
-    if _on_cuda(q):
-        return _pa.paged_attention(q, k_pages, v_pages, block_tables, seq_lens)
-    return ref.paged_attention_ref(q, k_pages, v_pages, block_tables, seq_lens)
+    return _run("paged_attention", q, _pa.paged_attention, ref.paged_attention_ref,
+                paged_attention_cost, q, k_pages, v_pages, block_tables, seq_lens)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):
     """[B, nh, Sq, dh] causal GQA attention with suffix alignment; see
     ``ref.flash_attention_ref``."""
-    if _on_cuda(q):
-        return _fa.flash_attention(q, k, v, causal=causal, sliding_window=sliding_window)
-    return ref.flash_attention_ref(q, k, v, causal=causal, sliding_window=sliding_window)
+    return _run("flash_attention", q, _fa.flash_attention, ref.flash_attention_ref,
+                flash_attention_cost, q, k, v, causal=causal, sliding_window=sliding_window)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.manager import CentralManager, resolve_device
-from repro_torch.core.types import MigrationPlan
+from repro_torch.core.types import TIER_FAST, TIER_SLOW, MigrationPlan
 from repro_torch.kernels import ops
 
 
@@ -55,6 +55,9 @@ class TieredPagedKV:
         # logical page id -> physical slot. Identity at boot: the manager
         # hands out page ids with tier semantics (id < n_fast iff fast).
         self.slot_of = np.arange(self.n_slots, dtype=np.int32)
+
+    def slots_for(self, logical_pages) -> np.ndarray:
+        return self.slot_of[np.asarray(logical_pages)]
 
     def page_bytes(self) -> int:
         L, nkv, dh = self.cfg.num_layers, self.cfg.num_kv_heads, self.cfg.d_head
@@ -180,6 +183,9 @@ class TieredPagedKV:
         return len(moves_src)
 
     # ------------------------------------------------------------ telemetry
+    def tier_of_pages(self, logical_pages) -> np.ndarray:
+        return np.where(self.slots_for(logical_pages) < self.n_fast, TIER_FAST, TIER_SLOW)
+
     def read_page(self, logical_page: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Copies of one logical page's (k, v) contents, [L, page, nkv, dh]
         each on the pools' device, wherever the page physically lives."""

@@ -604,3 +604,125 @@ def test_cuda_family_matches_cpu(cuda, arch):
         lg, cg = mod.decode_step(params["gpu"], tok.to(cuda), cg, cfg)
     torch.cuda.synchronize()
     assert (ops.launch_counts()["flash_attention"] > 0) == (arch != "mamba2-130m")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("queue", [0, 64], ids=["instant", "queue"])
+def test_cuda_fleet_split_over_card_and_cpu(cuda, queue):
+    """Five exact-sampling machines on the card split ``["cuda:0", "cpu"]``
+    (three on each slice, one inert) equal the fleet on ``["cuda:0"]`` and
+    each machine alone, bit for bit; a no-op dispatch uploads nothing."""
+    from repro_torch.core.fleet import FleetManager
+    from repro_torch.core.manager import CentralManager
+    from repro_torch.core.types import state_to_numpy
+
+    P, E, K = 4096, 5, 5
+
+    def machine(s):
+        kw = dict(num_pages=P, fast_capacity=1024 + 128 * s, migration_budget=64 + 32 * s,
+                  max_tenants=8, seed=s, exact_sampling=True, queue_size=queue, device=cuda)
+        if queue:
+            kw.update(migration_bandwidth=16 + 16 * s, migration_latency=s % 2)
+        m = CentralManager(**kw)
+        for t_miss, n in ((0.1, 1200), (0.5, 1200), (1.0, 800)):
+            m.allocate(m.register(t_miss), n)
+        return m
+
+    counts = (np.random.default_rng(10).poisson(4, (K, E, P)) * 9).astype(np.int64)
+    mixed = FleetManager([machine(s) for s in range(K)], devices=["cuda:0", "cpu"])
+    card = FleetManager([machine(s) for s in range(K)], devices=["cuda:0"])
+    assert [d.type for d in mixed.devices] == ["cuda", "cpu"] and mixed.num_padded == 6
+    a = mixed.run_epochs(E, counts=counts, collect_plans=True)
+    b = card.run_epochs(E, counts=counts, collect_plans=True)
+    for f in a.stats._fields:
+        x, y = getattr(a.stats, f), getattr(b.stats, f)
+        if x is not None and not hasattr(x, "_fields"):
+            assert torch.equal(x, y), f
+    assert np.array_equal(a.flags, b.flags)
+    for s in range(K):
+        alone = machine(s)
+        alone.run_epochs(E, counts=counts[s])
+        for m in (mixed.machines[s], card.machines[s]):
+            fs, ws = state_to_numpy(m._state), state_to_numpy(alone._state)
+            for part in ("pages", "tenants"):
+                for x, y in zip(getattr(fs, part), getattr(ws, part)):
+                    assert np.asarray(x).tobytes() == np.asarray(y).tobytes(), (s, part)
+            assert m.queue_counters() == alone.queue_counters()
+            assert m._state.pages.owner.device.type == "cuda"  # back on the machine's device
+    before = dict(mixed.upload_stats)
+    mixed.run_epochs(2)
+    assert mixed.upload_stats["restacked_machines"] == before["restacked_machines"]
+    assert mixed.upload_stats["clean_dispatches"] == before["clean_dispatches"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv,nh,nkv,causal,window", [
+    (1024, 1024, 16, 2, True, 0), (1032, 1032, 16, 2, True, 0), (200, 500, 8, 8, False, 0),
+    (300, 300, 8, 1, True, 64),
+])
+def test_cuda_flash_count_equals_cpu(cuda, Sq, Skv, nh, nkv, causal, window):
+    """``hlo_cost.module_cost`` of ``flash_attention`` reads the same FLOPs,
+    bytes and calls on the card (the kernel, launched through ctypes) as on
+    the CPU (its plain version), one launch on the card."""
+    from repro_torch.analysis import hlo_cost
+
+    g = torch.Generator().manual_seed(Sq)
+    q = torch.randn(2, nh, Sq, 128, generator=g).to(torch.bfloat16)
+    k = torch.randn(2, nkv, Skv, 128, generator=g).to(torch.bfloat16)
+    v = torch.randn(2, nkv, Skv, 128, generator=g).to(torch.bfloat16)
+
+    def count(*t):
+        c = hlo_cost.module_cost(lambda a, b, d: ops.flash_attention(
+            a, b, d, causal=causal, sliding_window=window), *t)
+        return c.flops, c.bytes, c.kernel_flops, c.kernel_bytes, dict(c.kernel_calls)
+
+    want = count(q, k, v)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = count(q.to(cuda), k.to(cuda), v.to(cuda))
+    torch.cuda.synchronize()
+    assert got == want and want[4] == {"flash_attention": 1}
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert want[0] == 4.0 * 2 * nh * 128 * ops.attention_pairs(Sq, Skv, causal, window)
+
+
+class _AttnInBackward(torch.autograd.Function):
+    """Identity forward; the backward runs ``flash_attention``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(k, v)
+        return q.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        k, v = ctx.saved_tensors
+        return ops.flash_attention(g, k, v), None, None
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_counted_inside_a_backward(cuda):
+    """A kernel called inside a backward: the card runs the backward on the
+    autograd engine's device thread, the CPU on the caller's; both count
+    the same analytic cost, once, and the card launches the kernel."""
+    from repro_torch.analysis import hlo_cost
+
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn(2, 16, 256, 128, generator=g).to(torch.bfloat16)
+    k = torch.randn(2, 2, 256, 128, generator=g).to(torch.bfloat16)
+    v = torch.randn(2, 2, 256, 128, generator=g).to(torch.bfloat16)
+
+    def count(q, k, v):
+        def run(q, k, v):
+            _AttnInBackward.apply(q, k, v).float().sum().backward()
+
+        c = hlo_cost.module_cost(run, q.clone().requires_grad_(), k, v)
+        return c.flops, c.kernel_flops, c.kernel_bytes, dict(c.kernel_calls)
+
+    want = count(q, k, v)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = count(q.to(cuda), k.to(cuda), v.to(cuda))
+    torch.cuda.synchronize()
+    assert got == want and want[3] == {"flash_attention": 1}
+    assert ops.launch_counts()["flash_attention"] == 1
