@@ -197,14 +197,41 @@ Phases, one line of numbers each:
      prompts, counted on the card and on the CPU (FLOPs and the kernels'
      bytes equal); then the prefill at full depth on the card, the
      counter's ``flash_attention`` calls equal to the launches
-     ``flash_tally`` splits by shape.
+     ``flash_tally`` splits by shape;
+ 25. ``mesh-one-card``: an NCCL process group of one rank and the (1, 1)
+     ``DeviceMesh`` ("data", "model"). 25a: layer 0's MoE block of phase 7's
+     weights (qwen2-moe-a2.7b, full width) through ``moe_mlp_shardmap`` on
+     ``DTensor``s against the mesh-less ``moe_mlp``, at the decode batch (32
+     tokens) and at one 1,024-token row: gate ids equal, outputs within
+     2e-3 relative, aux equal, each timed. 25b: phase 17's prefill
+     (qwen2.5-3b, full width and depth, 8 x 1,024) with the parameters
+     distributed by ``params_sharding``, under ``use_partitioning``: logits
+     and KV cache bit-equal to the mesh-less prefill and the logits to
+     phase 17's, ``flash_attention`` launched once a layer on the local
+     shards. 25c: a float32 train step at full width cut to 2 layers, the
+     state distributed by ``train_state_sharding``, against the mesh-less
+     step: loss and every parameter bit-equal. 25d: ``shardmap_int8_psum``
+     over the one-rank group bit-equal to the reference's formula;
+ 26. ``dryrun-cells``: ``python -m repro_torch.launch.dryrun`` on fake cuda
+     tensors, one process a cell, started before phase 25 and run beside
+     it: the four cells of ``tests/test_dryrun_small.py`` (qwen2.5-3b
+     train_4k, qwen2-moe-a2.7b decode_32k and mamba2-130m long_500k on the
+     4 x 4 test mesh; yi-6b train_4k on the 2 x 2 x 4 one) and qwen2.5-3b
+     train_4k on the 16 x 16 production mesh; each cell's counting wall,
+     FLOPs, bytes and collective bytes a device and its roofline terms on
+     H100 constants (JSON under ``chiprun_out/dryrun_torch/``); FLOPs > 0
+     and a dominant term for each, and the test-mesh qwen2.5-3b cell's FLOPs
+     a device x 16 within 1.0-1.5x of phase 24's unsharded step scaled to
+     the cell's 256 rows.
 Phases 12-16, 18 and the train steps of 19-22 launch none of the five
 kernels (fleet machines have no page pool; the train step's attention is
 ``blocked_attention``, which autograd differentiates); phase 17 launches
 ``flash_attention`` only, 36 times a prefill; the families' prefills launch
 only ``flash_attention`` (zamba2's 6 a prefill, whisper's encoder 4 and its
 teacher-forced decoder 8 more; mamba2's none); phase 23 launches none, phase
-24 ``flash_attention`` only (one a layer of each counted prefill). Phases
+24 ``flash_attention`` only (one a layer of each counted prefill), phase 25
+``flash_attention`` only (36 in 25b's meshed prefill), phase 26 none (fake
+tensors launch nothing). Phases
 12-15 and 23 run with ``vmap``'s batching-rule fallback warning as an error.
 Phase 2 also holds ``paged_attention`` and ``flash_attention`` against their
 plain versions, in float32 and bfloat16, at phase 5's shapes (flash at both
@@ -2811,6 +2838,7 @@ def lm_decode(torch, np, device):
         decode_top2_margin=top2_margin(torch, ref_logits[LD_FORCED - 1]))
     del ref_logits
 
+    out["prefill_logits"] = logits0.cpu()
     cache = fresh()
     prof = device_busy(torch, lambda: api.decode(params, first, cache), 1)
     mean_pos = LD_PROMPT + (LD_STEPS - 1) / 2
@@ -3690,6 +3718,284 @@ def cost_count(torch, np, device, step_ms: float):
 
 
 # --------------------------------------------------------------------- main
+# ------------------------------------------------------------------ phase 25
+# mesh-one-card: the mesh layer on a unit mesh, an NCCL group of one rank
+MO_TOKENS = ((SV_BATCH, 1), (1, LD_PROMPT))  # the decode batch, one 1,024-token row
+MO_TOL = 2e-3  # tests/test_model_consistency.py:68
+MO_STEP = (2, 512, 2)  # 25c: rows, tokens a row, layers (float32, full width)
+MO_INT8 = 1 << 24  # 25d: elements of the all-reduced gradient
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Bit for bit, a DTensor gathered whole first."""
+    a = a.full_tensor() if hasattr(a, "full_tensor") else a
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        torch.equal(bits(torch, a), bits(torch, b)))
+
+
+def mesh_moe(torch, np, device, mesh):
+    """25a: layer 0's MoE block of phase 7's weights through
+    ``moe_mlp_shardmap`` (``moe_mlp`` under ``use_partitioning``, on
+    ``DTensor``s) against the mesh-less ``moe_mlp``, at the decode batch and
+    at one 1,024-token row: gate ids equal (each path's routing recorded),
+    outputs within MO_TOL relative, aux equal; each timed."""
+    from repro_torch.launch import partitioning as part
+    from repro_torch.launch.shardings import rules_for
+    from repro_torch.models import moe
+    from repro_torch.models.model import get_model
+    from repro_torch.models.transformer import take
+
+    cfg = get_config("qwen2-moe-a2.7b")
+    params = get_model(cfg).init(seed=SEED, device=device)
+    block = {k: (v.clone() if not isinstance(v, dict) else {a: b.clone() for a, b in v.items()})
+             for k, v in take(params["layers"], 0)["moe"].items()}
+    del params
+    free_device(torch)
+    rules = rules_for(cfg, mesh)
+    specs = {k: (part.NamedSharding(mesh, part.spec_for(f"moe/{k}", v.shape, rules))
+                 if not isinstance(v, dict) else
+                 {a: part.NamedSharding(mesh, part.spec_for(f"moe/{k}/{a}", b.shape, rules))
+                  for a, b in v.items()}) for k, v in block.items()}
+    dblock = part.distribute(block, specs)
+    gen = torch.Generator(device=device).manual_seed(SEED + 25)
+    out, routes, plain_route = {}, [], moe.route
+
+    def spy(*a, **kw):
+        r = plain_route(*a, **kw)
+        routes.append(r.gate_ids)
+        return r
+
+    for B, S in MO_TOKENS:
+        x = torch.randn((B, S, cfg.d_model), generator=gen, device=device).to(cfg.cdtype)
+        xd = part.distribute(x, part.NamedSharding(mesh, part.P("data", None, None)))
+
+        def meshed():
+            with part.use_partitioning(mesh, rules):
+                return moe.moe_mlp(dblock, xd, cfg)
+
+        moe.route = spy
+        try:
+            routes.clear()
+            o1, a1 = meshed()
+            o0, a0 = moe.moe_mlp(block, x, cfg)
+            ids_equal = len(routes) == 2 and bool(torch.equal(routes[0], routes[1]))
+        finally:
+            moe.route = plain_route
+        o1 = o1.full_tensor()
+        rel = float((o1.float() - o0.float()).abs().max() / o0.float().abs().max())
+        tag = f"{B}x{S}"
+        out[tag] = dict(tokens=B * S, gate_ids_equal=ids_equal, out_max_rel_diff=rel,
+                        bit_equal=bits_equal(torch, o1, o0),
+                        aux_equal=bits_equal(torch, a1, a0),
+                        shardmap_ms=time_cuda(torch, meshed, reps=3, launches=5),
+                        plain_ms=time_cuda(torch, lambda: moe.moe_mlp(block, x, cfg), reps=3,
+                                           launches=5))
+        check(ids_equal, f"25a {tag}: both paths route to the same experts")
+        check(rel <= MO_TOL, f"25a {tag}: outputs within {MO_TOL} relative ({rel})")
+        check(out[tag]["aux_equal"], f"25a {tag}: aux losses equal")
+    del block, dblock
+    return out
+
+
+def mesh_prefill(torch, np, device, mesh, ld_logits):
+    """25b: phase 17's prefill (qwen2.5-3b, full width and depth, 8 x 1,024)
+    with the parameters distributed by ``params_sharding`` on the unit mesh,
+    under ``use_partitioning``: logits and cache bit-equal to the mesh-less
+    prefill's and to phase 17's logits; flash_attention launched once a
+    layer, on the local shards."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import partitioning as part
+    from repro_torch.launch.shardings import params_sharding, rules_for
+    from repro_torch.models.model import get_model
+
+    cfg = get_config(TR_ARCH)
+    api = get_model(cfg)
+    params = api.init(seed=SEED, device=device)
+    prompt = torch.as_tensor(SyntheticTokens(DataConfig(cfg.vocab_size, LD_PROMPT, LD_BATCH,
+                                                        seed=SEED)).batch_at(0)["tokens"],
+                             device=device)
+    rules = rules_for(cfg, mesh)
+    logits0, cache0 = api.prefill(params, prompt, LD_MAX)
+    plain_ms = time_cuda(torch, lambda: api.prefill(params, prompt, LD_MAX), reps=3, launches=2)
+    dparams = part.distribute(params, params_sharding(params, mesh, rules))
+    del params
+    dprompt = part.distribute(prompt, part.NamedSharding(
+        mesh, part.logical_spec(("batch", "seq"), rules)))
+
+    def meshed():
+        with part.use_partitioning(mesh, rules):
+            return api.prefill(dparams, dprompt, LD_MAX)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    logits1, cache1 = meshed()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    out = dict(logits_bit_equal=bits_equal(torch, logits1, logits0),
+               cache_bit_equal=bits_equal(torch, cache1.k, cache0.k)
+               and bits_equal(torch, cache1.v, cache0.v),
+               phase17_logits_bit_equal=bits_equal(torch, logits1, ld_logits.to(device)),
+               logits_placements=",".join(str(p) for p in logits1.placements),
+               flash_launches=launches["flash_attention"],
+               mesh_ms=time_cuda(torch, meshed, reps=3, launches=2), plain_ms=plain_ms)
+    check(out["logits_bit_equal"] and out["cache_bit_equal"],
+          f"25b: the meshed prefill's logits and cache bit-equal to the mesh-less one: {out}")
+    check(out["phase17_logits_bit_equal"], "25b: logits bit-equal to phase 17's prefill")
+    check(launches["flash_attention"] == cfg.num_layers
+          and not any(v for k, v in launches.items() if k != "flash_attention"),
+          f"25b: flash_attention once a layer, nothing else: {launches}")
+    del dparams, logits1, cache1, logits0, cache0
+    return out, launches
+
+
+def mesh_step(torch, np, device, mesh):
+    """25c: a float32 train step at full width cut to 2 layers on the unit
+    mesh (state distributed by ``train_state_sharding``) against the
+    mesh-less step, deterministic algorithms on: loss and every parameter
+    leaf bit-equal (else the largest difference is printed)."""
+    from repro_torch.launch import partitioning as part
+    from repro_torch.launch.shardings import rules_for, train_state_sharding
+    from repro_torch.training.optimizer import AdamWConfig, named_leaves
+    from repro_torch.training.train_state import init_train_state, make_train_step
+
+    B, S, layers = MO_STEP
+    cfg = dataclasses.replace(get_config(TR_ARCH), num_layers=layers, param_dtype="float32",
+                              compute_dtype="float32")
+    rules = rules_for(cfg, mesh)
+    step = make_train_step(cfg, AdamWConfig(**TR_OPT), remat="block")
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device=device,
+                           generator=torch.Generator(device=device).manual_seed(SEED))
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain = init_train_state(cfg, SEED, device=device)
+        plain, m0 = step(plain, batch)
+        meshed = init_train_state(cfg, SEED, device=device)
+        meshed = part.distribute(meshed, train_state_sharding(meshed, mesh, rules))
+        with part.use_partitioning(mesh, rules):
+            t0 = time.perf_counter()
+            meshed, m1 = step(meshed, batch)
+            torch.cuda.synchronize()
+            mesh_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diffs = {"/".join(path): float((a.full_tensor() - b).abs().max())
+             for (path, a), (_, b) in zip(named_leaves(meshed.params), named_leaves(plain.params))}
+    worst = max(diffs, key=diffs.get)
+    out = dict(rows=B, tokens=S, layers=layers, loss=float(m0["loss"]),
+               loss_bit_equal=bits_equal(torch, m1["loss"], m0["loss"]),
+               params_bit_equal=all(bits_equal(torch, a, b) for (_, a), (_, b) in zip(
+                   named_leaves(meshed.params), named_leaves(plain.params))),
+               max_param_diff=diffs[worst], max_param_diff_leaf=worst, mesh_step_s=mesh_s)
+    check(out["loss_bit_equal"] and out["params_bit_equal"],
+          f"25c: the unit-mesh step bit-equal to the mesh-less one: {out}")
+    del plain, meshed
+    return out
+
+
+def mesh_int8(torch, np, device, mesh):
+    """25d: ``shardmap_int8_psum`` over the one-rank "data" group against the
+    reference's formula (each rank quantised with its own scale, the codes
+    summed in int32, times the largest scale, over n), which at one rank is
+    the same: bit-equal; timed."""
+    from repro_torch.training.grad_compression import _quant, shardmap_int8_psum
+
+    g = torch.randn((MO_INT8,), generator=torch.Generator(device=device).manual_seed(SEED),
+                    device=device)
+    reduce = shardmap_int8_psum(mesh, ("data",))
+    y = reduce(g)
+    q, scale = _quant(g)
+    ref = q.to(torch.int32).float() * scale / 1  # psum and pmax of one rank, n = 1
+    out = dict(elements=MO_INT8, bit_equal=bits_equal(torch, y, ref),
+               ms=time_cuda(torch, lambda: reduce(g), reps=3, launches=5))
+    check(out["bit_equal"], "25d: the one-rank int8 all-reduce is the reference's formula")
+    return out
+
+
+def mesh_one_card(torch, np, device, ld_logits):
+    """Phase 25: an NCCL group of one rank and the (1, 1) mesh; 25a-25d."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import build_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = build_mesh((1, 1), ("data", "model"), device_type="cuda")
+        moe_out = mesh_moe(torch, np, device, mesh)
+        free_device(torch)
+        pre, launches = mesh_prefill(torch, np, device, mesh, ld_logits)
+        free_device(torch)
+        step = mesh_step(torch, np, device, mesh)
+        free_device(torch)
+        i8 = mesh_int8(torch, np, device, mesh)
+    finally:
+        dist.destroy_process_group()
+    return moe_out, pre, launches, step, i8
+
+
+# ------------------------------------------------------------------ phase 26
+# dryrun-cells: the four cells of tests/test_dryrun_small.py and one
+# production cell, each counted by ``python -m repro_torch.launch.dryrun`` on
+# fake cuda tensors in its own process (all started together)
+DR_CELLS = (("qwen2.5-3b", "train_4k", ("--test-mesh",)),
+            ("qwen2-moe-a2.7b", "decode_32k", ("--test-mesh",)),
+            ("mamba2-130m", "long_500k", ("--test-mesh",)),
+            ("yi-6b", "train_4k", ("--test-mesh", "--multi-pod")),
+            ("qwen2.5-3b", "train_4k", ()))
+DR_RATIO = (1.0, 1.5)
+DR_TIMEOUT = 600
+
+
+def start_dryrun_cells(out_dir: str):
+    """Start every DR_CELLS cell's process; returns them with their logs."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, extra in DR_CELLS:
+        log = tempfile.TemporaryFile(mode="w+")
+        procs.append((arch, shape, extra, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--out-dir", out_dir, *extra], env=env, cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT)))
+    return procs
+
+
+def finish_dryrun_cells(procs, out_dir: str, step_flops: float, step_rows: int):
+    """Phase 26: wait for the cells and read their JSON. Gates: every cell
+    counted, FLOPs > 0 and a dominant term; the test-mesh qwen2.5-3b train
+    cell's FLOPs a device x 16 within DR_RATIO of phase 24's unsharded step
+    scaled to the cell's 256 rows."""
+    rows = []
+    try:
+        for arch, shape, extra, log, p in procs:
+            rc = p.wait(timeout=DR_TIMEOUT)
+            log.seek(0)
+            text = log.read()
+            check(rc == 0 and "1/1 cells counted" in text,
+                  f"26: the dry-run of {arch} {shape} {extra} counted: {text[-2000:]}")
+            sub = "multipod" if "--multi-pod" in extra else (
+                "testmesh" if "--test-mesh" in extra else "singlepod")
+            with open(os.path.join(out_dir, sub, f"{arch}__{shape}.json")) as f:
+                rows.append(json.load(f))
+    finally:
+        for *_, log, p in procs:
+            p.kill()
+            log.close()
+    for r in rows:
+        check(r["flops_per_device"] > 0 and r["roofline"]["dominant"] in
+              ("compute", "memory", "collective"), f"26: {r['arch']} {r['shape']} {r['mesh']}")
+    cell = next(r for r in rows if (r["arch"], r["shape"], r["mesh"]) == ("qwen2.5-3b",
+                                                                          "train_4k", [4, 4]))
+    whole = step_flops * get_shape("train_4k").global_batch / step_rows
+    ratio = cell["flops_per_device"] * cell["n_chips"] / whole
+    check(DR_RATIO[0] <= ratio <= DR_RATIO[1],
+          f"26: the test-mesh cell's FLOPs x 16 within {DR_RATIO} of the unsharded step: {ratio}")
+    return rows, dict(unsharded_flops=whole, ratio=ratio)
+
+
 def shape_entry(k: dict, path: str, launches) -> dict:
     """One measured shape of a kernel for the ``kernels`` line."""
     keys = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -3909,6 +4215,7 @@ def main() -> int:
         undo()
     torch.cuda.synchronize()
     ld_launches = ops.launch_counts()
+    ld_logits = ld.pop("prefill_logits")
     for name, row in ld.items():
         emit(f"phase17 lm-decode {name}", **row)
     emit("phase17 launches", **ld_launches, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -3960,6 +4267,36 @@ def main() -> int:
     emit("phase24 launches", **cc24_launches)
     free_device(torch)
     emit("clock after phase 24", elapsed_s=time.perf_counter() - t_main)
+
+    # phase 26's cells count on the host in processes of their own, while
+    # phase 25 runs on the card
+    t_mesh = time.perf_counter()
+    dr_dir = os.path.join(ROOT, "chiprun_out", "dryrun_torch")
+    dr_procs = start_dryrun_cells(dr_dir)
+    # phase 25, mesh-one-card: the mesh layer on a unit mesh
+    mo, mo_pre, mo_launches, mo_step, mo_int8 = mesh_one_card(torch, np, device, ld_logits)
+    for tag, row in mo.items():
+        emit(f"phase25a moe-shardmap {tag}", **row)
+    emit("phase25b prefill-mesh", **mo_pre)
+    emit("phase25b launches", **mo_launches)
+    emit("phase25c train-step-mesh", **mo_step)
+    emit("phase25d int8-psum", **mo_int8)
+    emit("phase25", wall_s=time.perf_counter() - t_mesh)
+    free_device(torch)
+    # phase 26, dryrun-cells
+    dr_rows, dr_ratio = finish_dryrun_cells(dr_procs, dr_dir, cc24["step_flops"], TR_BATCH)
+    for r in dr_rows:
+        emit(f"phase26 dryrun {r['arch']} {r['shape']} {'x'.join(map(str, r['mesh']))}",
+             count_s=r["count_seconds"], flops_per_device=r["flops_per_device"],
+             bytes_per_device=r["bytes_per_device"], collective_bytes_total=r[
+                 "collective_bytes_total"], **{f"coll_{k}": v for k, v in
+                                              r["collective_bytes"].items()},
+             **{k: r["roofline"][k] for k in ("compute_s", "memory_s", "collective_s",
+                                              "dominant", "useful_ratio")},
+             argument_bytes=r["memory"]["argument_bytes"])
+    emit("phase26 ratio", **dr_ratio)
+    emit("phases25-26", wall_s=time.perf_counter() - t_mesh)
+    emit("clock after phase 26", elapsed_s=time.perf_counter() - t_main)
 
     sources = {
         "page_move": ("src/repro_torch/kernels/csrc/page_copy.cu",
@@ -4043,6 +4380,14 @@ def main() -> int:
         ])
     by_name["flash_attention"]["shapes"] += [
         shape_entry(r, path, n) for path in ("lm-zamba2", "lm-whisper") for r, n in fam_flash[path]]
+    # the unit mesh's prefill (phase 25b): phase 17's prompt shape, on local shards
+    prompt_row = next(r for r, _ in ld_flash if r["shape"].startswith(
+        f"q[{LD_BATCH},{get_config(TR_ARCH).num_heads},{LD_PROMPT},"))
+    by_name["flash_attention"]["shapes"].append(
+        shape_entry(prompt_row, "prefill-mesh", mo_launches["flash_attention"]))
+    for row in rows:
+        if row["name"] != "flash_attention":
+            row["shapes"].append({"path": "prefill-mesh", "launches": mo_launches[row["name"]]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

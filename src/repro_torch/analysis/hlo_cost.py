@@ -23,7 +23,12 @@ calls, which is what the reference's trip counts recover), and
     operations inside the call are not counted, so the count of a call is
     the same on the card, where the kernel launches through ctypes, and on
     the CPU, where its plain version runs, in a forward or a backward.
-    ``kernel_calls`` counts the entry calls by kernel.
+    ``kernel_calls`` counts the entry calls by kernel;
+  * ``DTensor``s (a program on a device mesh): the counter lets ``DTensor``
+    run each operation and counts the local operations and functional
+    collectives it issues, so the count is this rank's local program (the
+    reference's per-device HLO); the global-shape operations of ``DTensor``'s
+    sharding propagation are not counted.
 
 Bytes are eager PyTorch's, one pass per operation; XLA's fusion moves fewer,
 so byte counts are not comparable across the two packages (FLOPs are).
@@ -37,6 +42,8 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._sharding_prop import ShardingPropagator
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -59,7 +66,7 @@ _META = {
     _A.is_strides_like_format.default, _A.is_non_overlapping_and_dense.default,
     _A.size.default, _A.sym_size.default, _A.stride.default, _A.sym_stride.default,
     _A.storage_offset.default, _A.sym_storage_offset.default, _A.numel.default,
-    _A.sym_numel.default, _A.dim.default, torch.ops.prim.layout.default,
+    _A.sym_numel.default, _A.dim.default, torch.ops.prim.layout.default, torch.ops.prim.device.default,
 }
 # allocate without traffic, or alias their input without the view tag
 _FREE = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
@@ -73,6 +80,8 @@ _UPDATES = {"index_put": 2, "index_put_": 2, "_index_put_impl_": 2, "index_copy"
             "scatter_add": 3, "scatter_add_": 3, "slice_scatter": 1, "select_scatter": 1}
 # write their first operand without reading it
 _WRITE_ONLY_SELF = {"copy_", "fill_", "zero_", "normal_", "uniform_", "random_"}
+
+_SHARDING_PROP_CODE = ShardingPropagator._propagate_tensor_meta_non_cached.__code__
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NOT_NAMED = (os.path.join(_PKG, "analysis"), os.path.join(_PKG, "kernels"))
@@ -169,6 +178,21 @@ def op_path() -> str:
     return "/".join(reversed(names))
 
 
+def _in_sharding_propagation() -> bool:
+    """Whether ``DTensor``'s sharding propagation is on the stack: it runs
+    each new operation once on global-shape fake tensors (under a fake
+    tensor mode, the cheap test first) for the output's metadata, which is
+    no work of the local program."""
+    if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is None:
+        return False
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code is _SHARDING_PROP_CODE:
+            return True
+        f = f.f_back
+    return False
+
+
 class CostCounter(TorchDispatchMode):
     """Counts what runs under it into ``cost`` (a :class:`ModuleCost`).
 
@@ -210,7 +234,9 @@ class CostCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if self._quiet or func in _META:
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # DTensor runs it, and its local operations come here
+        if self._quiet or func in _META or _in_sharding_propagation():
             return func(*args, **kwargs)
         packet = func._overloadpacket
         if packet not in flop_registry:

@@ -200,12 +200,17 @@ class OwnerSegments(NamedTuple):
     @classmethod
     def build(cls, owner, max_tenants: int, device=None) -> "OwnerSegments":
         """Host rebuild from an owner array (numpy or a tensor), on
-        ``device`` (default: the owner tensor's, else the CPU)."""
+        ``device``: by default the owner tensor's, and for a numpy owner
+        the card (``manager.resolve_device``, which raises where there is
+        none), as the reference's lands on the default device."""
         if isinstance(owner, torch.Tensor):
             device = owner.device if device is None else device
             owner = owner.cpu().numpy()
-        host = segments_build_host(owner, max_tenants)
-        return cls.from_host(*host, device="cpu" if device is None else device)
+        elif device is None:
+            from repro_torch.core.manager import resolve_device
+
+            device = resolve_device(None, what="OwnerSegments.build")
+        return cls.from_host(*segments_build_host(owner, max_tenants), device=device)
 
 
 def segments_build_host(owner, max_tenants: int):

@@ -15,6 +15,17 @@ launched through ctypes where no dispatch mode sees it, or the plain
 version's step-by-step arithmetic. The counter is found on the mode stack,
 which the autograd engine carries to the thread that runs a backward, so an
 entry point called inside a backward is counted on the card as on the CPU.
+A fake tensor (``FakeTensorMode``, the dry-run) takes the plain version,
+whose operations on fake tensors compute shapes and nothing else; under a
+counter the call reads its kernel's analytic cost all the same.
+
+Under a device mesh (``launch/partitioning.py``), ``flash_attention`` and
+``paged_attention`` take ``DTensor`` inputs: the kernel runs on each rank's
+local shards wherever its math is independent along the sharded dimension
+(lanes over the batch, heads over the heads), and the result is wrapped
+back as a ``DTensor``. Any other placement (a sharded sequence, a partial
+sum) is first redistributed explicitly to one the kernel takes, which the
+cost counter sees as a collective; nothing switches to the plain version.
 """
 from __future__ import annotations
 
@@ -22,6 +33,8 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch.kernels import flash_attention as _fa
@@ -29,6 +42,7 @@ from repro_torch.kernels import hot_bins as _hb
 from repro_torch.kernels import page_copy as _pc
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
+from repro_torch.launch.partitioning import attention_on_shards
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -57,7 +71,7 @@ def _run(name: str, on: torch.Tensor, kernel: Callable, plain: Callable,
     """``kernel(*args, **kw)`` when ``on`` lies on the card, else
     ``plain(*args, **kw)``; under a cost counter, reported as one call of
     ``name`` costing ``cost(*args, **kw)``."""
-    fn = kernel if _on_cuda(on) else plain
+    fn = plain if is_fake(on) else (kernel if _on_cuda(on) else plain)
     sink = _cost_sink()
     if sink is None:
         return fn(*args, **kw)
@@ -141,16 +155,36 @@ def page_move(pool, src_ids, dst_ids):
                 pool, src_ids, dst_ids)
 
 
+def _any_dtensor(*ts) -> bool:
+    return any(isinstance(t, DTensor) for t in ts)
+
+
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
     """[B, nh, dh] one-token decode attention over a block table of pages;
-    see ``ref.paged_attention_ref``."""
+    see ``ref.paged_attention_ref``. ``DTensor`` inputs run shard by shard
+    (``partitioning.attention_on_shards``: lanes with their tables and lengths, heads with the
+    pools' kv heads)."""
+    if _any_dtensor(q, k_pages, v_pages, block_tables, seq_lens):
+        def call(*ts):
+            return paged_attention(*(t.contiguous() for t in ts))
+
+        return attention_on_shards(call, q, (k_pages, v_pages), (block_tables, seq_lens),
+                                   q_heads=1, kv_heads=2, kv_batch=None)
     return _run("paged_attention", q, _pa.paged_attention, ref.paged_attention_ref,
                 paged_attention_cost, q, k_pages, v_pages, block_tables, seq_lens)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):
     """[B, nh, Sq, dh] causal GQA attention with suffix alignment; see
-    ``ref.flash_attention_ref``."""
+    ``ref.flash_attention_ref``. ``DTensor`` inputs run shard by shard
+    (``partitioning.attention_on_shards``: lanes and heads; a sharded sequence is gathered
+    first)."""
+    if _any_dtensor(q, k, v):
+        def call(q, k, v):
+            return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   causal=causal, sliding_window=sliding_window)
+
+        return attention_on_shards(call, q, (k, v), (), q_heads=1, kv_heads=1, kv_batch=0)
     return _run("flash_attention", q, _fa.flash_attention, ref.flash_attention_ref,
                 flash_attention_cost, q, k, v, causal=causal, sliding_window=sliding_window)
 

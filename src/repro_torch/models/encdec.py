@@ -21,6 +21,7 @@ from typing import Any, Dict, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.partitioning import gather_fsdp, shard, take_rows
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import chunked_ce_loss, run_stack, take
 
@@ -112,7 +113,7 @@ def encode(params: Params, enc_embeds: torch.Tensor, cfg, *, remat: str = "block
     ``blocked_attention``."""
     B, T, d = enc_embeds.shape
     pos = torch.arange(T, device=enc_embeds.device)
-    x = enc_embeds.to(cfg.cdtype) + sinusoid(pos, d).to(cfg.cdtype)
+    x = shard(enc_embeds.to(cfg.cdtype) + sinusoid(pos, d).to(cfg.cdtype), "batch", "enc_seq", None)
     x = run_stack(params["enc_layers"], cfg.encoder_layers, _enc_layer, x, remat, cfg, flash)
     return _ln(x, params["enc_norm"], cfg.norm_eps)
 
@@ -121,8 +122,8 @@ def encode(params: Params, enc_embeds: torch.Tensor, cfg, *, remat: str = "block
 def _embed_dec(params: Params, tokens: torch.Tensor, cfg, pos0: int = 0) -> torch.Tensor:
     S_ = tokens.shape[1]
     pos = torch.arange(pos0, pos0 + S_, device=tokens.device)
-    x = params["embed"][tokens.long()].to(cfg.cdtype)
-    return x + sinusoid(pos, cfg.d_model).to(cfg.cdtype)
+    x = take_rows(params["embed"], tokens.long()).to(cfg.cdtype)
+    return shard(x + sinusoid(pos, cfg.d_model).to(cfg.cdtype), "batch", "seq", None)
 
 
 def _dec_layer_full(lp: Params, x: torch.Tensor, enc_out: torch.Tensor, cfg, flash: bool,
@@ -153,7 +154,7 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg, *, remat: str =
     x = run_stack(params["dec_layers"], cfg.num_layers, _dec_layer_full, x, remat, enc_out,
                   cfg, False)
     x = _ln(x, params["final_norm"], cfg.norm_eps)
-    tot, cnt = chunked_ce_loss(x, params["embed"].T, labels, cfg)  # head tied to the embedding
+    tot, cnt = chunked_ce_loss(x, gather_fsdp(params["embed"]).T, labels, cfg)  # head tied to the embedding
     loss = tot / torch.clamp(cnt, min=1.0)
     return loss, {"ce": loss, "aux": torch.zeros((), dtype=torch.float32, device=x.device),
                   "tokens": cnt}
@@ -204,7 +205,7 @@ def prefill(params: Params, enc_embeds: torch.Tensor, tokens: torch.Tensor, cfg,
         x = _dec_layer_full(take(params["dec_layers"], l), x, enc_out, cfg,
                             True, kv)
     x = _ln(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, -1] @ params["embed"].T).float()
+    logits = shard((x[:, -1] @ gather_fsdp(params["embed"]).T).float(), "batch", "vocab")
     k, v, ck, cv = (torch.stack(t) for t in zip(*kv))
     pad = max_len - Sq
     if pad > 0:
@@ -237,5 +238,5 @@ def decode_step(params: Params, token: torch.Tensor, cache: EncDecCache, cfg):
         x = x + oc.reshape(B, 1, -1) @ lp["cross"]["w_o"]
         x = _mlp_half(lp, x, cfg)
     x = _ln(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, 0] @ params["embed"].T).float()
+    logits = shard((x[:, 0] @ gather_fsdp(params["embed"]).T).float(), "batch", "vocab")
     return logits, cache._replace(pos=pos + 1)

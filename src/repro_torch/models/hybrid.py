@@ -19,7 +19,9 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.launch.partitioning import gather_fsdp, shard
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.ssm_lm import decode_layer, mamba_layer, run_layers, stack_caches
@@ -99,7 +101,7 @@ def forward_hidden(params: Params, x: torch.Tensor, cfg, positions, *, remat: st
     ``jax.checkpoint``."""
     groups, per_group, tail = _layout(cfg)
     x = run_stack(params["mamba_groups"], groups, _group_body, x, remat,
-                  params["shared_attn"], cfg, positions, remat)
+                  gather_fsdp(params["shared_attn"]), cfg, positions, remat)
     if tail:
         x = run_layers(params["mamba_tail"], tail, x, cfg, remat)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -134,7 +136,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg, max_len: int = 0):
     positions = _positions(B, S_, dev)
     x = embed_tokens(params, tokens, cfg)
     groups, per_group, tail = _layout(cfg)
-    shared = params["shared_attn"]
+    shared = gather_fsdp(params["shared_attn"])
     # the ring keeps each invocation's last `window` keys and values
     window = _window(cfg, max(max_len, S_))
     lo = S_ - min(S_, window)
@@ -158,16 +160,20 @@ def prefill(params: Params, tokens: torch.Tensor, cfg, max_len: int = 0):
             tail_caches.append(c)
         tail_ssm = stack_caches(tail_caches)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, -1] @ lm_head_weight(params, cfg)).float()
+    logits = shard((x[:, -1] @ lm_head_weight(params, cfg)).float(), "batch", "vocab")
 
-    # pack them in ring order
-    slots = torch.arange(lo, S_, device=dev) % window
-    shape = (groups, B, window, cfg.num_kv_heads, cfg.d_head)
-    kc = torch.zeros(shape, dtype=cfg.cdtype, device=dev)
-    vc = torch.zeros(shape, dtype=cfg.cdtype, device=dev)
+    # pack them in ring order: position lo + i at slot (lo + i) % window
+    # (lo > 0 only when the last `window` positions fill the ring)
+    def ring(t):
+        t = torch.stack(t).to(cfg.cdtype)  # [G, B, S_ - lo, nkv, dh]
+        return torch.roll(F.pad(t, (0, 0, 0, 0, 0, window - t.shape[2])), lo % window, 2)
+
     if groups:
-        kc[:, :, slots] = torch.stack(ks).to(cfg.cdtype)
-        vc[:, :, slots] = torch.stack(vs).to(cfg.cdtype)
+        kc, vc = ring(ks), ring(vs)
+    else:
+        shape = (groups, B, window, cfg.num_kv_heads, cfg.d_head)
+        kc = torch.zeros(shape, dtype=cfg.cdtype, device=dev)
+        vc = torch.zeros(shape, dtype=cfg.cdtype, device=dev)
     return logits, HybridCache(group_ssm=stack_caches(group_caches), tail_ssm=tail_ssm,
                                k=kc, v=vc, pos=S_)
 
@@ -213,7 +219,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: HybridCache, cfg):
     groups, per_group, tail = _layout(cfg)
     x = embed_tokens(params, token[:, None], cfg)
     pos = cache.pos
-    shared = params["shared_attn"]
+    shared = gather_fsdp(params["shared_attn"])
     gs = cache.group_ssm
     for g in range(groups):
         gp = take(params["mamba_groups"], g)
@@ -225,5 +231,5 @@ def decode_step(params: Params, token: torch.Tensor, cache: HybridCache, cfg):
         x = decode_layer(take(params["mamba_tail"], l), x,
                          S.SSMCache(cache.tail_ssm.conv[l], cache.tail_ssm.state[l]), cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, 0] @ lm_head_weight(params, cfg)).float()
+    logits = shard((x[:, 0] @ lm_head_weight(params, cfg)).float(), "batch", "vocab")
     return logits, cache._replace(pos=pos + 1)

@@ -27,8 +27,10 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
+from repro_torch.launch.partitioning import attention_on_shards
 from repro_torch.models import tuning
 
 Params = Dict[str, Any]
@@ -207,7 +209,16 @@ def blocked_attention(q, k, v, *, causal: bool, q_block: int = 512, kv_block: in
     query group of ``nh //
     nkv`` heads is folded into the rows of one product with its KV head,
     where the reference repeats the keys: the same products. A row that
-    every key masks gets a zero output."""
+    every key masks gets a zero output.
+
+    Under a device mesh (``DTensor`` inputs) it runs on each rank's lanes and
+    heads (``partitioning.attention_on_shards``)."""
+    if isinstance(q, DTensor) or isinstance(k, DTensor):
+        def call(q, k, v):
+            return blocked_attention(q, k, v, causal=causal, q_block=q_block, kv_block=kv_block,
+                                     sliding_window=sliding_window, q_offset=q_offset)
+
+        return attention_on_shards(call, q, (k, v), (), q_heads=2, kv_heads=2, kv_batch=0)
     B, Sq, nh, dh = q.shape
     Skv, nkv = k.shape[1], k.shape[2]
     g = nh // nkv
@@ -310,7 +321,17 @@ def decode_attention(q, k_cache, v_cache, length, *, sliding_window: int = 0) ->
 
     q: [B, 1, nh, dh]; k_cache, v_cache: [B, S, nkv, dh]; length: the
     context length (an int, or a tensor of one per lane). Returns
-    [B, 1, nh, dh]."""
+    [B, 1, nh, dh]. ``DTensor`` inputs run on each rank's lanes and heads
+    (``partitioning.attention_on_shards``)."""
+    if isinstance(q, DTensor):
+        lanes = () if isinstance(length, int) else (length,)
+
+        def call(q, k, v, *n):
+            return decode_attention(q, k, v, n[0] if n else length,
+                                    sliding_window=sliding_window)
+
+        return attention_on_shards(call, q, (k_cache, v_cache), lanes, q_heads=2, kv_heads=2,
+                                   kv_batch=0)
     B, nh, dh = q.shape[0], q.shape[2], q.shape[3]
     s, mask = _decode_scores(q, k_cache, length, sliding_window)
     p = torch.softmax(torch.where(mask, s, -torch.inf), dim=-1)

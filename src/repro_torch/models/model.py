@@ -13,15 +13,19 @@ family's ``prefill`` is ``encdec.prefill_cross(params, enc_embeds,
 max_len)``, as in the reference; its teacher-forced prefill is
 ``encdec.prefill``. Unlike the reference's, the SSM and hybrid APIs expose
 their ``prefill`` (the reference's modules have it).
+
+``input_specs(cfg, shape)`` gives a ``(shape, dtype)`` record for each
+model input of a shape cell (the reference's ShapeDtypeStruct stand-ins for
+the dry-run); nothing is allocated.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.manager import resolve_device
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 
@@ -76,3 +80,24 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         decode=lambda p, t, c: mod.decode_step(p, t, c, cfg),
         prefill=prefill,
     )
+
+
+# --------------------------------------------------------------------------- specs
+class InputSpec(NamedTuple):
+    """The shape and dtype of one model input."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, InputSpec]:
+    """Stand-ins for every model input of a shape cell: train and prefill
+    cells feed the loss (tokens and labels; the encoder-decoder's frame
+    embeddings too), decode cells the decode step (one token per lane)."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.is_decode:
+        return {"token": InputSpec((B,), torch.int32)}
+    specs = {"tokens": InputSpec((B, S), torch.int32), "labels": InputSpec((B, S), torch.int32)}
+    if cfg.is_encoder_decoder:
+        specs["enc_embeds"] = InputSpec((B, cfg.max_encoder_len, cfg.d_model), cfg.cdtype)
+    return specs

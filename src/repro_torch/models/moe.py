@@ -12,9 +12,14 @@ token's drops depend on the tokens before it.
 
 The expert weights are padded to ``Ep = max(E, expert_pad_to)``; routing
 runs over the real E only and the pad experts receive zero rows. The
-reference's sharding annotations and its several-device ``moe_mlp_shardmap``
-are not carried over. The capacity factor is ``tuning.FLAGS.capacity_factor``
-where set, else the config's, as in the reference.
+capacity factor is ``tuning.FLAGS.capacity_factor`` where set, else the
+config's, as in the reference.
+
+Under a device mesh (``launch.partitioning.use_partitioning``) and
+``tuning.FLAGS.moe_shardmap``, ``moe_mlp`` runs ``moe_mlp_shardmap``, the
+reference's token-motion-free expert parallelism: each rank routes its own
+tokens into a buffer for its own experts only, runs them, and one
+all-reduce over "model" sums the partial outputs.
 
 Under autograd the block is differentiable as the reference's is: the
 gradients flow through the gate probabilities (the renormalised top-k
@@ -29,6 +34,9 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import partitioning as part
+from repro_torch.launch.mesh import axis_size
+from repro_torch.launch.partitioning import PartitionSpec as P, shard
 from repro_torch.models import layers as L
 from repro_torch.models import tuning
 
@@ -120,6 +128,10 @@ def route(router: torch.Tensor, xf: torch.Tensor, cfg, cap: int) -> Routing:
 
 def moe_mlp(params: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (out [B, S, d], aux_loss f32 scalar)."""
+    if tuning.FLAGS.moe_shardmap:
+        ctx = part.current()
+        if ctx is not None:
+            return moe_mlp_shardmap(params, x, cfg, *ctx)
     B, S, d = x.shape
     T = B * S
     E, k = cfg.num_experts, cfg.moe_top_k
@@ -138,11 +150,21 @@ def moe_mlp(params: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.T
     token_idx = torch.arange(T, device=x.device).repeat_interleave(k)
     contrib = xf[token_idx] * r.valid[:, None].to(x.dtype)
     xe = torch.zeros((padded_experts(cfg), C, d), dtype=x.dtype, device=x.device)
-    xe.index_put_((flat_ids, rank_c), contrib, accumulate=True)
+    xe = xe.index_put((flat_ids, rank_c), contrib, accumulate=True)
+    if tuning.FLAGS.moe_explicit_a2a:
+        # the scatter stays token-local (C over data), then one explicit
+        # resharding to the expert-parallel layout: the dispatch all-to-all
+        xe = shard(shard(xe, None, "a2a_cap", None), "experts", None, None)
+    else:
+        xe = shard(xe, "experts_buf", "expert_cap", None)
 
     # the experts: one batched matmul each for gate, up and down
     h = F.silu(torch.bmm(xe, params["w_gate"])) * torch.bmm(xe, params["w_up"])
     ye = torch.bmm(h, params["w_down"])  # [Ep, C, d]
+    if tuning.FLAGS.moe_explicit_a2a:
+        ye = shard(shard(ye, "experts", None, None), None, "a2a_cap", None)  # combine back
+    else:
+        ye = shard(ye, "experts_buf", "expert_cap", None)
 
     # combine: gather back, weight, sum over the k choices
     w = (r.gate_w.reshape(T * k, 1) * r.valid[:, None]).to(ye.dtype)
@@ -152,3 +174,110 @@ def moe_mlp(params: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.T
         sp = params["shared"]
         out = out + (F.silu(xf @ sp["w_gate"]) * (xf @ sp["w_up"])) @ sp["w_down"]
     return out.reshape(B, S, d), aux
+
+
+def moe_mlp_shardmap(params: Params, x: torch.Tensor, cfg, mesh, rules
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_mlp`` with token-motion-free expert parallelism on ``mesh``, the
+    reference's ``moe_mlp_shardmap``. The activations are replicated over
+    "model", so each rank already holds every token of its data shard and
+    the experts of its "model" slice: it routes its tokens over all E
+    experts (ranks and capacity counted locally, ``C_dev`` slots per expert
+    for its T_local tokens), keeps the assignments to its own experts, runs
+    them, and one all-reduce over "model" sums the partial outputs. Token
+    dropping is per (rank, expert) instead of global. The shared experts
+    are split over "model" by their hidden width where it divides, else run
+    whole on model rank 0; either way their output rides the same
+    all-reduce (the reference adds unsplit shared experts after it). The aux
+    loss is averaged over the data axes.
+
+    Each input is taken as this rank's block of the reference's shard_map
+    specs (``partitioning.local_view``: a ``DTensor`` redistributed, a plain
+    tensor read as replicated); the results are ``DTensor``s laid out as x
+    (out) and replicated (aux) when x is one, else plain tensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.moe_top_k
+    Ep = padded_experts(cfg)
+    dp_axes = rules.get("batch") or ()
+    dp_axes = (dp_axes,) if isinstance(dp_axes, str) else tuple(dp_axes)
+    m_size = axis_size(mesh, "model")
+    ep_sharded = Ep % m_size == 0
+    E_local = Ep // m_size if ep_sharded else Ep
+    dp_size = math.prod(axis_size(mesh, a) for a in dp_axes)
+    T_local = (B // dp_size if B % dp_size == 0 else B) * S
+    cf = tuning.FLAGS.capacity_factor or cfg.capacity_factor
+    C_dev = max(8, int(math.ceil(T_local * k / E * cf / 8.0)) * 8)
+
+    bspec = dp_axes if len(dp_axes) > 1 else (dp_axes[0] if dp_axes else None)
+    x_spec = P(bspec, None, None)
+    w_spec = P("model" if ep_sharded else None, None, None)
+    sf = cfg.num_shared_experts * cfg.moe_d_ff
+    shared_ff_sharded = bool(ep_sharded and cfg.num_shared_experts and sf % m_size == 0)
+    sg_spec = P(None, "model") if shared_ff_sharded else P(None, None)
+    sd_spec = P("model", None) if shared_ff_sharded else P(None, None)
+
+    def local(t, spec):
+        return part.local_view(t, mesh, part.to_placements(spec, mesh))
+
+    xl = local(x, x_spec)
+    router = local(params["router"], P(None, None))
+    wg, wu, wd = (local(params[n], w_spec) for n in ("w_gate", "w_up", "w_down"))
+    Bl, Sl, _ = xl.shape
+    Tl = Bl * Sl
+    xf = xl.reshape(Tl, d)
+
+    # routing over ALL experts, ranks counted locally (no communication)
+    r = route(router, xf, cfg, C_dev)
+    ce = F.one_hot(r.gate_ids[:, 0], E).float().mean(0)
+    aux_l = E * torch.sum(r.probs.mean(0) * ce) * cfg.router_aux_weight
+
+    # keep only the assignments to THIS rank's expert slice
+    e_lo = mesh.get_local_rank("model") * E_local if ep_sharded else 0
+    flat_ids = r.gate_ids.reshape(-1)
+    local_e = flat_ids - e_lo
+    mine = (local_e >= 0) & (local_e < wg.shape[0]) & r.valid
+    le = local_e.clamp(0, wg.shape[0] - 1)
+    rc = r.rank.clamp(max=C_dev - 1)
+    token_idx = torch.arange(Tl, device=xl.device).repeat_interleave(k)
+    contrib = xf[token_idx] * mine[:, None].to(xl.dtype)
+    xe = torch.zeros((wg.shape[0], C_dev, d), dtype=xl.dtype, device=xl.device)
+    xe = xe.index_put((le, rc), contrib, accumulate=True)
+
+    h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
+    ye = torch.bmm(h, wd)
+    w = (r.gate_w.reshape(Tl * k, 1) * mine[:, None]).to(ye.dtype)
+    out = (ye[le, rc] * w).reshape(Tl, k, d).sum(1)
+
+    # A term every rank of "model" computes alike (the aux loss, unsplit
+    # shared experts, and everything when the experts are not split) is
+    # contributed by model rank 0 only and joins the all-reduce as a partial
+    # sum: its value is exact (the other ranks add zeros) and, with the
+    # inputs' gradients summed over "model" (``local_view``), so is its
+    # gradient.
+    first = mesh.get_local_rank("model") == 0
+    if not ep_sharded and not first:
+        out = torch.zeros_like(out)
+    sp = params.get("shared")
+    if sp is not None and (shared_ff_sharded or first):
+        sg, su = local(sp["w_gate"], sg_spec), local(sp["w_up"], sg_spec)
+        sdn = local(sp["w_down"], sd_spec)
+        # ff-split over the SAME axis, its partial sums ride the same
+        # all-reduce as the routed experts (one collective in all)
+        out = out + (F.silu(xf @ sg) * (xf @ su)) @ sdn
+
+    x_pl = part.to_placements(x_spec, mesh)
+    model = mesh.mesh_dim_names.index("model")
+    out_pl = [Partial() if i == model else p for i, p in enumerate(x_pl)]
+    out = DTensor.from_local(out.reshape(Bl, Sl, d), mesh, out_pl, run_check=False)
+    out = out.redistribute(mesh, x_pl)  # the ONLY cross-model traffic
+    # pmean over the data axes: psum, then / n
+    aux_pl = [Partial() if name in dp_axes or name == "model" else Replicate()
+              for name in mesh.mesh_dim_names]
+    aux_l = aux_l if first else torch.zeros_like(aux_l)
+    aux = DTensor.from_local(aux_l, mesh, aux_pl, run_check=False)
+    aux = aux.redistribute(mesh, [Replicate()] * mesh.ndim) / float(dp_size)
+    if isinstance(x, DTensor):
+        return out, aux
+    return out.full_tensor(), aux.full_tensor()

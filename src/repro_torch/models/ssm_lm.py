@@ -12,6 +12,7 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
+from repro_torch.launch.partitioning import shard
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.transformer import (
@@ -97,7 +98,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg, max_len: int = 0):
         x, c = mamba_layer(layer_params(params, l), x, cfg, with_cache=True)
         caches.append(c)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, -1] @ lm_head_weight(params, cfg)).float()
+    logits = shard((x[:, -1] @ lm_head_weight(params, cfg)).float(), "batch", "vocab")
     return logits, SSMLMCache(layers=stack_caches(caches), pos=S_)
 
 
@@ -122,5 +123,5 @@ def decode_step(params: Params, token: torch.Tensor, cache: SSMLMCache, cfg):
         x = decode_layer(layer_params(params, l), x,
                          S.SSMCache(cache.layers.conv[l], cache.layers.state[l]), cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, 0] @ lm_head_weight(params, cfg)).float()
+    logits = shard((x[:, 0] @ lm_head_weight(params, cfg)).float(), "batch", "vocab")
     return logits, SSMLMCache(layers=cache.layers, pos=cache.pos + 1)

@@ -3,8 +3,9 @@ forward and loss, prefill, and the contiguous-cache decode.
 
 Layers are stacked along a leading axis, as in the reference, and run in a
 Python loop over that axis (the reference's ``lax.scan``). Per-layer remat
-is ``torch.utils.checkpoint`` around each layer. The reference's sharding
-annotations are not carried over (one device).
+is ``torch.utils.checkpoint`` around each layer. The reference's logical
+sharding annotations (``launch.partitioning.shard``) stand at the same
+sites; they are the identity on plain tensors and outside a mesh context.
 
 Attention: the training forward (``loss_fn``) runs ``L.blocked_attention``,
 which autograd differentiates, as the reference's ``_attn_full`` does; the
@@ -17,8 +18,10 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.partitioning import attention_on_shards, gather_fsdp, shard, take_rows
 from repro_torch.models import layers as L
 from repro_torch.models import moe, tuning
 
@@ -69,8 +72,10 @@ def init_params(gen: torch.Generator, cfg, device) -> Params:
 
 
 def take(tree, i: int):
-    """Entry ``i`` of every leaf's leading axis: views into stacked tensors."""
-    return {k: take(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
+    """Entry ``i`` of every leaf's leading axis: views into stacked tensors
+    (under a mesh, with their data-axis sharding gathered)."""
+    return {k: take(v, i) for k, v in tree.items()} if isinstance(tree, dict) else gather_fsdp(
+        tree[i])
 
 
 def layer_params(params: Params, l: int) -> Params:
@@ -84,22 +89,31 @@ def block_full(lp: Params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
     """One decoder layer over a full sequence. Returns (x, aux, (k, v)).
     ``flash``: the prefill's ``flash_attention`` kernel in place of
     ``blocked_attention``."""
+    x = shard(x, "batch", "seq", None)  # a sequence-parallel residual gathered
     h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q, k, v = L.qkv_project(lp["attn"], h, cfg)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
     if flash:
         o = L.causal_attention(q, k, v, sliding_window=cfg.sliding_window)
     else:
         o = L.blocked_attention(q, k, v, causal=True, sliding_window=cfg.sliding_window,
                                 q_block=tuning.FLAGS.q_block, kv_block=tuning.FLAGS.kv_block)
-    x = x + o.reshape(*x.shape[:2], -1) @ lp["attn"]["w_o"]
+    # the heads' partial sums reduced here, so the MLP's input is whole on
+    # "model" (its products then split d_ff, as the weights do)
+    x = shard(x + o.reshape(*x.shape[:2], -1) @ lp["attn"]["w_o"], "batch", "seq", None)
     h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     if cfg.is_moe:
         m, aux = moe.moe_mlp(lp["moe"], h, cfg)
     else:
         m, aux = L.mlp(lp["mlp"], h, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + m, aux, (k, v)
+    # sequence parallelism (Megatron): the residual stream is sharded over
+    # "model" between the layers of a model without MoE
+    seq = "seq_sp" if tuning.FLAGS.seq_parallel_activations and not cfg.is_moe else "seq"
+    return shard(x + m, "batch", seq, None), aux, (k, v)
 
 
 def mlp_block(lp: Params, h: torch.Tensor, cfg) -> torch.Tensor:
@@ -113,7 +127,8 @@ def mlp_block(lp: Params, h: torch.Tensor, cfg) -> torch.Tensor:
 
 # --------------------------------------------------------------------------- forward
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(cfg.cdtype)
+    x = take_rows(params["embed"], tokens.long())
+    return shard(x.to(cfg.cdtype), "batch", "seq", None)
 
 
 def forward_hidden(params: Params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
@@ -159,8 +174,8 @@ def run_stack(layers: Params, n: int, body, x: torch.Tensor, remat: str, *args) 
 
 def lm_head_weight(params: Params, cfg) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return params["embed"].T  # [d, V]
-    return params["lm_head"]
+        return gather_fsdp(params["embed"]).T  # [d, V]
+    return gather_fsdp(params["lm_head"])
 
 
 def ce_chunk_size(B: int, S: int, V: int) -> int:
@@ -174,11 +189,11 @@ def ce_chunk_size(B: int, S: int, V: int) -> int:
 def _ce_chunk(h: torch.Tensor, lab: torch.Tensor, head: torch.Tensor):
     """(sum of -log p(label), valid labels) of one chunk, float32."""
     ldt = torch.bfloat16 if tuning.FLAGS.loss_logits_bf16 else torch.float32
-    logits = (h @ head).to(ldt)  # [B, chunk, V]
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    lab_c = lab.clamp(0, head.shape[1] - 1).long()
-    ll = logits.gather(-1, lab_c[..., None])[..., 0].float()
-    valid = (lab >= 0).float()
+    logits = shard((h @ head).to(ldt), "batch", None, "vocab")  # [B, chunk, V]
+    lse = torch.logsumexp(logits.float(), dim=-1, keepdim=True)
+    lab_c = lab.clamp(0, head.shape[1] - 1).long()[..., None]
+    ll = logits.gather(-1, lab_c).float()  # [B, chunk, 1]
+    valid = (lab >= 0).float()[..., None]
     return ((lse - ll) * valid).sum(), valid.sum()
 
 
@@ -232,6 +247,11 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> KVC
                    v=torch.zeros(shape, dtype=dt, device=device), pos=0)
 
 
+def shard_kv_cache(cache: KVCache) -> KVCache:
+    return KVCache(k=shard(cache.k, None, "batch", "kv_seq", "kv_heads", None),
+                   v=shard(cache.v, None, "batch", "kv_seq", "kv_heads", None), pos=cache.pos)
+
+
 @torch.no_grad()
 def prefill(params: Params, tokens: torch.Tensor, cfg, max_len: int):
     """Process a full prompt (tokens [B, S]); returns (last-token logits
@@ -247,7 +267,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg, max_len: int):
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
     logits = (h[:, -1:] @ lm_head_weight(params, cfg)).float()
-    return logits, KVCache(k=k.to(cfg.cdtype), v=v.to(cfg.cdtype), pos=S)
+    return logits, shard_kv_cache(KVCache(k=k.to(cfg.cdtype), v=v.to(cfg.cdtype), pos=S))
 
 
 def _decode_rope(x: torch.Tensor, cfg, pos: int):
@@ -290,25 +310,38 @@ def _block_decode_deferred(lp: Params, x: torch.Tensor, cfg, k_cache, v_cache, p
     ``pos`` tokens in it and the current token's key and value are merged
     into the softmax exactly. Returns (x, k, v), the new k, v [B, 1, nkv,
     dh] for one commit after the stack."""
-    B = x.shape[0]
     q, k, v = _decode_qkv(lp, x, cfg, pos, rope)
-    nkv, dh = cfg.num_kv_heads, cfg.d_head
-    g = cfg.num_heads // nkv
-    acc, m, l = L.decode_attention_stats(q, k_cache, v_cache, pos,
-                                         sliding_window=cfg.sliding_window)
+    o = _attend_deferred(q, k_cache, v_cache, k, v, pos, cfg.sliding_window, x.dtype)
+    return _decode_out(lp, x, o, cfg), k, v
+
+
+def _attend_deferred(q, k_cache, v_cache, k, v, pos: int, sliding_window: int, dtype):
+    """The deferred commit's attention of q [B, 1, nh, dh] over the ``pos``
+    cached keys and the current token's k, v [B, 1, nkv, dh], merged
+    exactly; [B, 1, nh, dh] in ``dtype``. ``DTensor`` inputs run on each
+    rank's lanes and heads."""
+    if isinstance(q, DTensor):
+        def call(q, k_cache, v_cache, k, v):
+            return _attend_deferred(q, k_cache, v_cache, k, v, pos, sliding_window, dtype)
+
+        return attention_on_shards(call, q, (k_cache, v_cache, k, v), (), q_heads=2,
+                                   kv_heads=2, kv_batch=0)
+    B, _, nh, dh = q.shape
+    nkv = k.shape[2]
+    g = nh // nkv
+    acc, m, l = L.decode_attention_stats(q, k_cache, v_cache, pos, sliding_window=sliding_window)
     # the current token: score q.k_new, value v_new
     qg = q.reshape(B, 1, nkv, g, dh).float()
     s_new = (qg * k.float().reshape(B, 1, nkv, 1, dh)).sum(-1).permute(0, 2, 3, 1)
-    s_new = s_new / torch.sqrt(torch.full((), dh, dtype=torch.float32, device=x.device))
+    s_new = s_new / torch.sqrt(torch.full((), dh, dtype=torch.float32, device=q.device))
     m2 = torch.maximum(m, s_new)  # [B, nkv, g, 1]
     w_c = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m2))
     w_n = torch.exp(s_new - m2)
     v_n = v.float().reshape(B, 1, nkv, 1, dh).permute(0, 2, 3, 1, 4)  # [B, nkv, 1, 1, dh]
     acc2 = acc * w_c[..., None] + w_n[..., None] * v_n
     l2 = l * w_c + w_n
-    o = (acc2 / torch.clamp(l2[..., None], min=1e-30)).to(x.dtype)
-    o = o.permute(0, 3, 1, 2, 4)  # [B, 1, nkv, g, dh]
-    return _decode_out(lp, x, o, cfg), k, v
+    o = (acc2 / torch.clamp(l2[..., None], min=1e-30)).to(dtype)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, 1, nh, dh)  # heads h = n * g + j
 
 
 @torch.no_grad()
@@ -339,5 +372,5 @@ def decode_step(params: Params, token: torch.Tensor, cache: KVCache, cfg):
             x, _, _ = block_decode(layer_params(params, l), x, cfg, cache.k[l], cache.v[l], pos,
                                    rope)
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (h[:, 0] @ lm_head_weight(params, cfg)).float()
-    return logits, KVCache(k=cache.k, v=cache.v, pos=pos + 1)
+    logits = shard((h[:, 0] @ lm_head_weight(params, cfg)).float(), "batch", "vocab")
+    return logits, shard_kv_cache(KVCache(k=cache.k, v=cache.v, pos=pos + 1))

@@ -11,11 +11,17 @@ published facts; these are implementation choices.
 The port reads ``attn_score_f32``, ``q_block``, ``kv_block``,
 ``decode_deferred_commit``, ``loss_logits_bf16``, ``norm_bf16_apply``,
 ``capacity_factor`` and ``ssd_chunk`` (``models/ssm.ssd_chunk``). The
-sharding flags (``seq_parallel_activations``, ``moe_shard_capacity``,
-``moe_shard_both``, ``moe_explicit_a2a``, ``moe_shardmap``,
-``serve_resident_weights``) are kept as fields with the reference's defaults
-and change nothing yet: the port runs on one device, and the mesh paths that
-read them come with ROADMAP Queue 1 item 11.
+sharding flags act under a device mesh (``launch.partitioning.
+use_partitioning``) and change nothing on plain tensors:
+  * ``seq_parallel_activations``: ``models/transformer.block_full`` shards
+    the residual stream over "model" between the layers of a model without
+    MoE;
+  * ``moe_shardmap``: ``models/moe.moe_mlp`` runs ``moe_mlp_shardmap``;
+  * ``moe_explicit_a2a``: ``models/moe.moe_mlp`` lays its dispatch buffer
+    out token-local, then expert-parallel (two ``shard`` steps);
+  * ``moe_shard_capacity``, ``moe_shard_both``, ``serve_resident_weights``:
+    ``launch/shardings.rules_for`` (the dispatch buffer's axes; decode cells'
+    weights off the data axes).
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ class TuningFlags:
     # block sizes of the blocked attention
     q_block: int = 512
     kv_block: int = 1024
-    # sharding flags: kept, read by no code of the port yet (item 11)
+    # sharding flags (under a device mesh; see the module docstring)
     seq_parallel_activations: bool = True
     moe_shard_capacity: bool = False
     moe_shard_both: bool = False

@@ -6,8 +6,16 @@ dequantised again; the quantisation residual is carried in an error-feedback
 buffer and added back next step (Seide et al. / 1-bit Adam lineage).
 Rounding is half to even in both packages (``jnp.round``, ``torch.round``).
 
-``shardmap_int8_psum``, the reference's int8-wire all-reduce over a device
-mesh, waits for the mesh tooling (ROADMAP Queue 1 item 11): it raises.
+``shardmap_int8_psum`` is the reference's int8-wire all-reduce over the
+axes of a device mesh: int8 codes summed in int32, then dequantised and
+divided by n. The reference quantises each shard with its own scale and
+dequantises the sum with the largest, which is wrong when the scales differ
+(shards [1, 0.5] and [100, -50] give [100, 0], where the mean is [50.5,
+-24.75]). The port takes the shared scale first (an all-reduce MAX of each
+rank's absolute maximum) and every rank quantises against it, so the result
+is within s/2 of the float mean, s the shared scale (ROADMAP Queue 3 item
+20). Where the ranks' scales agree (one rank, equal shards) it is the
+reference's bit for bit.
 """
 from __future__ import annotations
 
@@ -43,7 +51,40 @@ def init_error_buf(params) -> Any:
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
 
 
-def shardmap_int8_psum(mesh, axis_names):
-    raise NotImplementedError(
-        "the int8-wire all-reduce needs a device mesh: it waits for ROADMAP Queue 1 item 11"
-    )
+def shardmap_int8_psum(mesh, axis_names: Tuple[str, ...]):
+    """Returns f(x) performing an int8-wire all-reduce over ``axis_names``.
+
+    x is laid out as the reference's shard_map in_specs ``P(*axis_names)``
+    (tensor dim i over axis i): a ``DTensor`` is redistributed to that, a
+    plain tensor is read as replicated. Each rank's block becomes the mean
+    of the blocks over the named axes; the result is a ``DTensor`` with the
+    same layout. The collectives are functional (``_c10d_functional``), one
+    MAX and one int32 SUM per axis."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import partitioning as part
+
+    placements = part.to_placements(part.PartitionSpec(*axis_names), mesh)
+    groups = [mesh[a] for a in axis_names]
+    n = 1
+    for g in groups:
+        n *= g.size()
+
+    def apply(x):
+        xl = part.local_view(x, mesh, placements)
+        amax = torch.max(torch.abs(xl))
+        for g in groups:  # the shared scale, before any rank quantises
+            amax = funcol.all_reduce(amax, "max", g)
+        scale = torch.clamp(amax, min=1e-12) / torch.full((), 127.0, dtype=xl.dtype,
+                                                          device=xl.device)
+        q = torch.clamp(torch.round(xl / scale), -127, 127).to(torch.int8)
+        qs = q.to(torch.int32)  # int32 accumulation
+        for g in groups:
+            qs = funcol.all_reduce(qs, "sum", g)
+        out = qs.float() * scale / torch.full((), float(n), dtype=torch.float32,
+                                              device=xl.device)
+        return DTensor.from_local(out, mesh, placements, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+
+    return apply

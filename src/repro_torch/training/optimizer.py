@@ -10,12 +10,19 @@ Python number is multiplied by its reciprocal (two roundings).
 
 Leaf order is the reference's: ``jax.tree.leaves`` sorts dict keys, and so
 does ``named_leaves``; ``global_norm`` sums the leaves in that order.
+
+Under a device mesh the leaves are ``DTensor``s (``launch.shardings.
+train_state_sharding``: m and v laid out as their parameter). The global
+norm is a ``DTensor`` reduction; the update itself runs on each rank's
+local blocks, each gradient first redistributed to its parameter's layout
+(a partial sum over the data axes is all-reduced there).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 SLAB_ELEMS = 1 << 26  # elements of one slab of an in-place update (256 MiB in f32)
 
@@ -105,20 +112,27 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: OptState
     """One AdamW step with global-norm clipping. ``params``, ``state.m`` and
     ``state.v`` are updated in place; returns (params, state', metrics)."""
     gnorm = global_norm(grads)
+    if isinstance(gnorm, DTensor):
+        gnorm = gnorm.full_tensor()
     clip = torch.clamp(_f32(cfg.grad_clip, gnorm) / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
-    lr = lr_schedule(cfg, step)
+    sl = step.to_local() if isinstance(step, DTensor) else step
+    lr = lr_schedule(cfg, sl)
     b1, b2 = cfg.beta1, cfg.beta2
-    bc1 = 1.0 - torch.pow(_f32(b1, step), step.float())
-    bc2 = 1.0 - torch.pow(_f32(b2, step), step.float())
-    eps = _f32(cfg.eps, step)
-    wd = _f32(cfg.weight_decay, step)
+    bc1 = 1.0 - torch.pow(_f32(b1, sl), sl.float())
+    bc2 = 1.0 - torch.pow(_f32(b2, sl), sl.float())
+    eps = _f32(cfg.eps, sl)
+    wd = _f32(cfg.weight_decay, sl)
 
     ms, vs = dict(named_leaves(state.m)), dict(named_leaves(state.v))
     gs = dict(named_leaves(grads))
     for path, p in named_leaves(params):
         decay = _decay_mask(path)
-        for p_s, g_s, m_s, v_s in zip(*(_slabs(t) for t in (p, gs[path], ms[path], vs[path]))):
+        g, m, v = gs[path], ms[path], vs[path]
+        if isinstance(p, DTensor):
+            g = g.redistribute(p.device_mesh, p.placements).to_local()
+            p, m, v = p.to_local(), m.to_local(), v.to_local()
+        for p_s, g_s, m_s, v_s in zip(*(_slabs(t) for t in (p, g, m, v))):
             g = g_s.float() * clip
             m_s.mul_(b1).add_(g * (1 - b1))
             v_s.mul_(b2).add_(torch.square(g).mul_(1 - b2))

@@ -248,7 +248,8 @@ def test_train_main_resumed_equals_straight(tmp_path, capsys, deterministic):
 
 def test_trainer_defaults_to_the_card(monkeypatch):
     """The trainer and its state run on the card unless asked for the CPU;
-    without a GPU the default raises. A mesh waits for item 11."""
+    without a GPU the default raises. ``--mesh test`` without a process group
+    of the mesh's world size raises, naming the size."""
     from repro_torch.training.train_state import init_train_state as init
 
     cfg = get_config("qwen2.5-3b").smoke()
@@ -257,7 +258,8 @@ def test_trainer_defaults_to_the_card(monkeypatch):
         train.main(["--smoke", "--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init(cfg, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="process group of world size 16"):
         train.main(["--smoke", "--steps", "1", "--mesh", "test", "--device", "cpu"])
     state = train.main(["--smoke", "--steps", "1", "--seq", "16", "--batch", "2",
                         "--device", "cpu"])

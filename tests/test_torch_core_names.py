@@ -203,11 +203,29 @@ def test_owner_segments_build_matches_reference():
     rng = np.random.default_rng(4)
     owner = np.where(rng.random(300) < 0.2, -1, rng.integers(0, 6, 300)).astype(np.int32)
     want = jtypes.OwnerSegments.build(owner, 6)
-    for src in (owner, torch.as_tensor(owner, dtype=torch.int16)):
-        got = OwnerSegments.build(src, 6)
+    for got in (OwnerSegments.build(owner, 6, device=CPU),
+                OwnerSegments.build(torch.as_tensor(owner, dtype=torch.int16), 6)):
         for f in ("order", "inv", "start"):
             assert getattr(got, f).device == CPU and getattr(got, f).dtype == torch.int64
             np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)))
+
+
+def test_owner_segments_build_of_a_numpy_owner_follows_resolve_device(monkeypatch):
+    """The reference's build lands on the default device; the port's, for a
+    numpy owner and no device, on ``resolve_device``'s: the card, and
+    without one a clear error (it used to stay on the CPU unasked)."""
+    from repro_torch.core import manager
+
+    owner = np.array([1, -1, 0, 1], np.int32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OwnerSegments.build(owner, 2)
+    asked = []
+    monkeypatch.setattr(manager, "resolve_device",
+                        lambda d=None, what="": asked.append((d, what)) or torch.device("cpu"))
+    got = OwnerSegments.build(owner, 2)
+    assert asked == [(None, "OwnerSegments.build")] and got.order.device == CPU
+    assert got.order.tolist() == [2, 0, 3, 1] and got.start.tolist() == [0, 1, 3]
 
 
 # ------------------------------------------ tests/test_migration_queue.py:544

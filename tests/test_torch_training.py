@@ -26,6 +26,7 @@ from repro.training import grad_compression as jgc
 from repro.training import optimizer as jopt
 from repro.training.train_state import init_train_state as jax_init_state
 from repro.training.train_state import make_train_step as jax_make_step
+from _mesh_worker import run_ranks
 from repro_torch.configs import get_config
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.training import grad_compression as gc
@@ -131,7 +132,7 @@ def test_adamw_updates_in_slabs_as_one(monkeypatch):
 
 
 # ------------------------------------------------------------ compression
-def test_compress_decompress_matches_reference_bit_for_bit():
+def test_compress_decompress_matches_reference_bit_for_bit(tmp_path):
     rng = np.random.default_rng(2)
     g = {"w": rng.normal(size=(64, 48)).astype(np.float32),
          "b": (rng.normal(size=(48,)) * 1e-3).astype(np.float32)}
@@ -144,8 +145,13 @@ def test_compress_decompress_matches_reference_bit_for_bit():
                 assert np.array_equal(a, b)
     q, scale = gc._quant(torch.tensor([0.5, -1.5, 2.5, 127.0]))
     assert q.dtype == torch.int8 and q.tolist() == [0, -2, 2, 127]  # half to even
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        gc.shardmap_int8_psum(None, ("data",))
+    # the int8-wire all-reduce over a one-rank group (a process of its own:
+    # a process group is process-global) is the reference's on one device
+    np.savez(tmp_path / "g.npz", w=g["w"])
+    (ours,) = run_ranks("int8", 1, tmp_path, str(tmp_path / "g.npz"))
+    mesh = jax.make_mesh((1,), ("data",), axis_types=(jax.sharding.AxisType.Auto,))
+    ref = jgc.shardmap_int8_psum(mesh, ("data",))(g["w"])
+    assert np.array_equal(np.asarray(ours["full"][0], np.float32), np.asarray(ref))
 
 
 def test_error_feedback_preserves_sum():
