@@ -197,7 +197,12 @@ Phases, one line of numbers each:
      prompts, counted on the card and on the CPU (FLOPs and the kernels'
      bytes equal); then the prefill at full depth on the card, the
      counter's ``flash_attention`` calls equal to the launches
-     ``flash_tally`` splits by shape;
+     ``flash_tally`` splits by shape. The counted pass also follows the
+     live bytes (``analysis.memory``), held against the card's caching
+     allocator over the same call: the full-depth step and prefill within
+     3% or 256 MiB, the 2-layer step's and prefill's peaks equal on the
+     card, the CPU and fake tensors of each, and each launched kernel alone
+     (``page_move`` cold and warm) equal to the allocator;
  25. ``mesh-one-card``: an NCCL process group of one rank and the (1, 1)
      ``DeviceMesh`` ("data", "model"). 25a: layer 0's MoE block of phase 7's
      weights (qwen2-moe-a2.7b, full width) through ``moe_mlp_shardmap`` on
@@ -219,8 +224,10 @@ Phases, one line of numbers each:
      4 x 4 test mesh; yi-6b train_4k on the 2 x 2 x 4 one) and qwen2.5-3b
      train_4k on the 16 x 16 production mesh; each cell's counting wall,
      FLOPs, bytes and collective bytes a device and its roofline terms on
-     H100 constants (JSON under ``chiprun_out/dryrun_torch/``); FLOPs > 0
-     and a dominant term for each, and the test-mesh qwen2.5-3b cell's FLOPs
+     H100 constants, its argument, output, temporary and peak bytes a device
+     beside the card's memory (JSON under ``chiprun_out/dryrun_torch/``);
+     FLOPs > 0, a dominant term and integer peak bytes for each, and the
+     test-mesh qwen2.5-3b cell's FLOPs
      a device x 16 within 1.0-1.5x of phase 24's unsharded step scaled to
      the cell's 256 rows.
 Phases 12-16, 18 and the train steps of 19-22 launch none of the five
@@ -229,7 +236,9 @@ kernels (fleet machines have no page pool; the train step's attention is
 ``flash_attention`` only, 36 times a prefill; the families' prefills launch
 only ``flash_attention`` (zamba2's 6 a prefill, whisper's encoder 4 and its
 teacher-forced decoder 8 more; mamba2's none); phase 23 launches none, phase
-24 ``flash_attention`` only (one a layer of each counted prefill), phase 25
+24 ``flash_attention`` only on its paths (one a layer of each counted
+prefill; its kernel checks then launch each kernel alone, outside the
+counts), phase 25
 ``flash_attention`` only (36 in 25b's meshed prefill), phase 26 none (fake
 tensors launch nothing). Phases
 12-15 and 23 run with ``vmap``'s batching-rule fallback warning as an error.
@@ -3566,23 +3575,74 @@ def sharded_sweep(torch, np):
 # same model cut to CC_LAYERS layers, a CC_TRAIN (rows, tokens) train step
 # and the lm-decode prefill's 8 x 1,024, counted on the card and on the CPU
 # (small: the CPU runs the same calls), FLOPs and kernel bytes equal; then
-# the prefill at full depth on the card, counted against flash_tally
+# the prefill at full depth on the card, counted against flash_tally. The
+# counted pass also follows the live bytes (analysis.memory), held against
+# the card's caching allocator over the same call: its max_memory_allocated
+# less memory_allocated at the start, after reset_peak_memory_stats. The
+# full-depth and 2-layer step and prefill read within MEM_SLACK bytes of the
+# allocator (on an H100 80GB HBM3 at 700 W the gaps were 0 to 3.5 MiB, blocks
+# no dispatch mode sees; one layer's saved input of the full-depth step is
+# 32 MiB); the 2-layer step and prefill reach one peak on the card, the CPU
+# and fake tensors of each; each launched kernel alone equals the allocator
+# (kernel_memory)
 CC_LAYERS, CC_TRAIN, CC_TOP = 2, (1, 256), 15
+MEM_SLACK = 16 << 20
 
 
-def count_on(torch, fn, *args):
-    """(ModuleCost, contributions) of ``fn(*args)``, one call each."""
-    from repro_torch.analysis import attribution, hlo_cost
+def allocator_peak(torch, fn):
+    """(``fn()``, the bytes the card's caching allocator gained at its
+    highest while it ran)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - start
 
-    cost = hlo_cost.module_cost(fn, *args)
+
+def tracked(torch, device, fn, *args):
+    """(ModuleCost, MemoryAnalysis, the allocator's bytes) of one call
+    ``fn(*args)``, counted and followed on ``device`` in one pass."""
+    from repro_torch.analysis import memory
+    from repro_torch.analysis.hlo_cost import CostCounter
+
+    def run():
+        with CostCounter(device=device) as counter:
+            out = fn(*args)
+        return counter.cost, memory.analysis(args, out, counter.live)
+
+    (cost, mem), alloc = allocator_peak(torch, run)
+    return cost, mem, alloc
+
+
+def count_on(torch, device, fn, *args):
+    """(ModuleCost, contributions, MemoryAnalysis, the allocator's bytes) of
+    ``fn(*args)``: ``tracked``, then ``attribution.attribute``, one call
+    each."""
+    from repro_torch.analysis import attribution
+
+    cost, mem, alloc = tracked(torch, device, fn, *args)
     rows = attribution.attribute(fn, *args)
-    return cost, rows
+    return cost, rows, mem, alloc
+
+
+def memory_row(tag: str, mem, alloc) -> dict:
+    return {f"{tag}_argument_bytes": mem.argument_bytes, f"{tag}_temp_bytes": mem.temp_bytes,
+            f"{tag}_peak_bytes": mem.peak_bytes, f"{tag}_peak_gib": mem.peak_bytes / 2**30,
+            f"{tag}_allocator_bytes": alloc, f"{tag}_gap_bytes": mem.temp_bytes - alloc}
+
+
+def check_near_allocator(tag: str, mem, alloc) -> None:
+    check(abs(mem.temp_bytes - alloc) <= MEM_SLACK,
+          f"{tag}: the tracker's peak above the arguments ({mem.temp_bytes}) within "
+          f"{MEM_SLACK} bytes of the allocator's ({alloc})")
 
 
 def count_step(torch, np, device, step_ms: float):
     """Phase 24's first part: phase 16's step counted on the card,
     ``roofline.compute_terms`` of the count against ``step_ms`` (phase
-    16's mean), and the top contributions by bytes."""
+    16's mean), the top contributions by bytes, and the live bytes against
+    the allocator's."""
     from repro_torch.analysis import roofline
     from repro_torch.configs import ShapeConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
@@ -3597,10 +3657,11 @@ def count_step(torch, np, device, step_ms: float):
                       .batch_at(0), device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cost, rows = count_on(torch, step, state, batch)
+    cost, rows, mem, alloc = count_on(torch, device, step, state, batch)
     torch.cuda.synchronize()
     count_s = time.perf_counter() - t0
     del state, step, batch
+    check_near_allocator("the full-depth step", mem, alloc)
     check(sum(r.flops for r in rows) == cost.flops,
           "the step's contributions add up to its count's FLOPs")
     check(not cost.kernel_calls, f"the train step calls no kernel: {dict(cost.kernel_calls)}")
@@ -3617,16 +3678,17 @@ def count_step(torch, np, device, step_ms: float):
                model_flops=terms.model_flops, useful_ratio=terms.useful_ratio,
                model_flops_share=terms.model_flops / step_s / roofline.PEAK_FLOPS,
                counted_flops_share=cost.flops / step_s / roofline.PEAK_FLOPS,
-               bound_over_step=terms.step_time_s / step_s)
+               bound_over_step=terms.step_time_s / step_s, **memory_row("step", mem, alloc))
     return out, sorted(rows, key=lambda r: -r.bytes)[:CC_TOP]
 
 
 def cost_count(torch, np, device, step_ms: float):
-    """Phase 24: ``count_step``; then ``hlo_cost.module_cost`` and
-    ``attribution.attribute`` of a train step and a prefill cut to
-    CC_LAYERS layers on the card and on the CPU, FLOPs and the kernels'
-    bytes equal; the counter's ``flash_attention`` calls against the
-    launches (``flash_tally``) at full depth."""
+    """Phase 24: ``count_step``; then ``count_on`` of a train step and a
+    prefill cut to CC_LAYERS layers on the card and on the CPU, FLOPs and
+    the kernels' bytes equal, and their peaks on fake tensors of each
+    device, every peak equal; the counter's ``flash_attention`` calls
+    against the launches (``flash_tally``) at full depth, and its live
+    bytes against the allocator's."""
     from repro_torch.analysis import roofline
     from repro_torch.configs import ShapeConfig
     from repro_torch.kernels import ops
@@ -3635,39 +3697,72 @@ def cost_count(torch, np, device, step_ms: float):
     from repro_torch.training import train_state as ts
     from repro_torch.training.optimizer import AdamWConfig
 
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis.memory import memory_analysis
+
     out, top = count_step(torch, np, device, step_ms)
     free_device(torch)
     full = get_config(TR_ARCH)
     cfg = dataclasses.replace(full, num_layers=CC_LAYERS)
     B, S = CC_TRAIN
     cpu = torch.device("cpu")
-    train, pre = {}, {}
-    for tag, dev in (("cuda", device), ("cpu", cpu)):
+
+    def small_train(dev):
         state = ts.init_train_state(cfg, SEED, device=dev)
-        step = ts.make_train_step(cfg, AdamWConfig(**TR_OPT), remat="block")
         tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator(
             device=dev).manual_seed(SEED), device=dev)
-        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
-        t0 = time.perf_counter()
-        train[tag] = count_on(torch, step, state, batch)
-        out[f"small_train_count_{tag}_s"] = time.perf_counter() - t0
-        del state, step, batch
+        return (ts.make_train_step(cfg, AdamWConfig(**TR_OPT), remat="block"), state,
+                {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)})
+
+    def small_prefill(dev):
         params = get_model(cfg).init(seed=SEED, device=dev)
         prompts = torch.randint(0, cfg.vocab_size, (LD_BATCH, LD_PROMPT),
                                 generator=torch.Generator(device=dev).manual_seed(SEED + 1),
                                 device=dev)
+        return lambda p, t: transformer.prefill(p, t, cfg, LD_MAX), params, prompts
+
+    train, pre = {}, {}
+    for tag, dev in (("cuda", device), ("cpu", cpu)):
+        fn, *args = small_train(dev)
+        t0 = time.perf_counter()
+        train[tag] = count_on(torch, dev, fn, *args)
+        out[f"small_train_count_{tag}_s"] = time.perf_counter() - t0
+        del fn, args
+        fn, *args = small_prefill(dev)
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        pre[tag] = count_on(torch, lambda p, t: transformer.prefill(p, t, cfg, LD_MAX),
-                            params, prompts)
+        pre[tag] = count_on(torch, dev, fn, *args)
         torch.cuda.synchronize()
         out[f"prefill_count_{tag}_s"] = time.perf_counter() - t0
         out[f"prefill_{tag}_launches"] = ops.launch_counts()["flash_attention"]
-        del params, prompts
+        del fn, args
         free_device(torch)
-    (tc, trows), (cc, crows) = train["cuda"], train["cpu"]
-    (tp, prows), (cp, _) = pre["cuda"], pre["cpu"]
+    # the same calls on fake tensors of each device: the peaks alone
+    fake_peaks = {}
+    for tag, dev in (("fake_cuda", device), ("fake_cpu", cpu)):
+        t0 = time.perf_counter()
+        with FakeTensorMode():
+            for kind, make in (("train", small_train), ("prefill", small_prefill)):
+                fn, *args = make(dev)
+                fake_peaks[f"small_{kind}_{tag}"] = memory_analysis(fn, *args).peak_bytes
+                del fn, args
+        out[f"small_{tag}_s"] = time.perf_counter() - t0
+    (tc, trows, tm, _), (cc, crows, cm, _) = train["cuda"], train["cpu"]
+    (tp, prows, pm, _), (cp, _, cpm, _) = pre["cuda"], pre["cpu"]
+    peaks = {"small_train_cuda": tm.peak_bytes, "small_train_cpu": cm.peak_bytes,
+             "small_prefill_cuda": pm.peak_bytes, "small_prefill_cpu": cpm.peak_bytes,
+             **fake_peaks}
+    out.update({f"{k}_peak_bytes": v for k, v in peaks.items()})
+    out.update(**memory_row("small_train", tm, train["cuda"][3]),
+               **memory_row("small_prefill", pm, pre["cuda"][3]))
+    check_near_allocator("the 2-layer step", tm, train["cuda"][3])
+    check_near_allocator("the 2-layer prefill", pm, pre["cuda"][3])
+    for kind in ("train", "prefill"):
+        got = {k: v for k, v in peaks.items() if k.startswith(f"small_{kind}_")}
+        check(len(set(got.values())) == 1,
+              f"the 2-layer {kind}'s peak is one on the card, the CPU and fakes: {got}")
     for tag, c, rows in (("small_train", tc, trows), ("small_train_cpu", cc, crows),
                          ("prefill", tp, prows), ("prefill_cpu", cp, pre["cpu"][1])):
         check(sum(r.flops for r in rows) == c.flops,
@@ -3697,12 +3792,14 @@ def cost_count(torch, np, device, step_ms: float):
     ops.reset_launch_counts()
     tally, undo = flash_tally()
     try:
-        deep = count_on(torch, lambda p, t: transformer.prefill(p, t, full, LD_MAX),
-                        params, prompts)[0]
+        deep, _, deep_mem, deep_alloc = count_on(
+            torch, device, lambda p, t: transformer.prefill(p, t, full, LD_MAX), params, prompts)
     finally:
         undo()
     torch.cuda.synchronize()
     launches = ops.launch_counts()
+    out.update(memory_row("deep_prefill", deep_mem, deep_alloc))
+    check_near_allocator("the full-depth prefill", deep_mem, deep_alloc)
     out.update(deep_prefill_flops=deep.flops, deep_prefill_kernel_flops=deep.kernel_flops,
                deep_prefill_kernel_bytes=deep.kernel_bytes,
                deep_prefill_calls=deep.kernel_calls["flash_attention"],
@@ -3715,6 +3812,59 @@ def cost_count(torch, np, device, step_ms: float):
           f"{tally} {launches}")
     del params, prompts
     return out, top, launches
+
+
+def kernel_memory(torch, np, device) -> dict:
+    """Phase 24's kernel checks: each launched kernel alone at one shape of
+    PERF.md §6's table (``flash_attention`` at the lm-decode prompt,
+    ``paged_attention`` at yi-6b's decode batch, ``hot_bins`` at 531,470
+    ids over 1,048,576 pages, ``page_move`` at the 16-entry expert swap),
+    the tracker's bytes (the kernel's new outputs and workspace) equal to
+    the allocator's over the call; ``page_move`` cold, its workspace made
+    and grown (88 MiB of scratch), then warm (nothing). Each call runs
+    after ``free_device``, on fresh segments, so that no cached block is
+    handed out whole (up to 1 MiB larger than asked)."""
+    from repro_torch.kernels import ops, page_copy
+
+    full, moe = get_config(TR_ARCH), get_config("qwen2-moe-a2.7b")
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 30)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device).to(bf16)
+
+    q = randn(LD_BATCH, full.num_heads, LD_PROMPT, full.d_head)
+    kv = [randn(LD_BATCH, full.num_kv_heads, LD_PROMPT, full.d_head) for _ in range(2)]
+    rows = moe.num_layers * moe.num_experts
+    pool = torch.empty((rows, moe.d_model * moe.moe_d_ff), dtype=bf16, device=device)
+    src, dst = (torch.as_tensor(x, device=device)
+                for x in expert_swap_plan(np, np.random.default_rng(SEED + 31), rows))
+    pages = 1 << 20
+    counts = torch.randint(0, 1 << 10, (pages,), generator=g, device=device, dtype=torch.int32)
+    ids = torch.randint(0, pages, (531_470,), generator=g, device=device, dtype=torch.int32)
+    paged = paged_inputs(torch, np, bf16, device)
+    calls = (
+        ("flash_attention", lambda: ops.flash_attention(q, *kv)),
+        ("paged_attention", lambda: ops.paged_attention(*paged)),
+        ("hot_bins", lambda: ops.hot_bins(ids, counts)),
+        ("page_move_cold", lambda: ops.page_move(pool, src, dst)),
+        ("page_move_warm", lambda: ops.page_move(pool, src, dst)),
+    )
+    page_copy._WORKSPACES.pop(pool.device, None)  # page_move_cold makes it anew
+    out = {}
+    for name, fn in calls:
+        free_device(torch)
+        _, mem, alloc = tracked(torch, device, fn)
+        out[f"{name}_tracked_bytes"], out[f"{name}_allocator_bytes"] = mem.temp_bytes, alloc
+        check(mem.temp_bytes == alloc,
+              f"{name} alone: the tracker's {mem.temp_bytes} bytes are the allocator's {alloc}")
+    ws = page_copy._WORKSPACES.get(pool.device)
+    out["page_move_scratch_bytes"] = scratch = 0 if ws is None else ws.scratch.numel()
+    check(out["page_move_cold_tracked_bytes"] > scratch > 0
+          and out["page_move_warm_tracked_bytes"] == 0,
+          f"page_move's workspace grows once, then holds: {out}")
+    return out
 
 
 # --------------------------------------------------------------------- main
@@ -3965,7 +4115,8 @@ def start_dryrun_cells(out_dir: str):
 
 def finish_dryrun_cells(procs, out_dir: str, step_flops: float, step_rows: int):
     """Phase 26: wait for the cells and read their JSON. Gates: every cell
-    counted, FLOPs > 0 and a dominant term; the test-mesh qwen2.5-3b train
+    counted, FLOPs > 0, a dominant term and its live bytes followed
+    (integer temp and peak bytes); the test-mesh qwen2.5-3b train
     cell's FLOPs a device x 16 within DR_RATIO of phase 24's unsharded step
     scaled to the cell's 256 rows."""
     rows = []
@@ -3987,6 +4138,10 @@ def finish_dryrun_cells(procs, out_dir: str, step_flops: float, step_rows: int):
     for r in rows:
         check(r["flops_per_device"] > 0 and r["roofline"]["dominant"] in
               ("compute", "memory", "collective"), f"26: {r['arch']} {r['shape']} {r['mesh']}")
+        mem = r["memory"]
+        check(isinstance(mem["peak_bytes"], int) and mem["temp_bytes"] == mem["peak_bytes"]
+              - mem["argument_bytes"] >= 0,
+              f"26: {r['arch']} {r['shape']} {r['mesh']} followed its live bytes: {mem}")
     cell = next(r for r in rows if (r["arch"], r["shape"], r["mesh"]) == ("qwen2.5-3b",
                                                                           "train_4k", [4, 4]))
     whole = step_flops * get_shape("train_4k").global_batch / step_rows
@@ -4266,6 +4421,8 @@ def main() -> int:
              rtype=r.rtype, op_name=r.op_name.replace(" ", "_"))
     emit("phase24 launches", **cc24_launches)
     free_device(torch)
+    emit("phase24 kernel-memory", **kernel_memory(torch, np, device))
+    free_device(torch)
     emit("clock after phase 24", elapsed_s=time.perf_counter() - t_main)
 
     # phase 26's cells count on the host in processes of their own, while
@@ -4285,6 +4442,7 @@ def main() -> int:
     free_device(torch)
     # phase 26, dryrun-cells
     dr_rows, dr_ratio = finish_dryrun_cells(dr_procs, dr_dir, cc24["step_flops"], TR_BATCH)
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
     for r in dr_rows:
         emit(f"phase26 dryrun {r['arch']} {r['shape']} {'x'.join(map(str, r['mesh']))}",
              count_s=r["count_seconds"], flops_per_device=r["flops_per_device"],
@@ -4293,7 +4451,10 @@ def main() -> int:
                                               r["collective_bytes"].items()},
              **{k: r["roofline"][k] for k in ("compute_s", "memory_s", "collective_s",
                                               "dominant", "useful_ratio")},
-             argument_bytes=r["memory"]["argument_bytes"])
+             **{k: r["memory"][k] for k in ("argument_bytes", "output_bytes", "temp_bytes",
+                                             "peak_bytes")},
+             peak_gib=r["memory"]["peak_bytes"] / 2**30, card_gib=card_bytes / 2**30,
+             fits=r["memory"]["peak_bytes"] <= card_bytes)
     emit("phase26 ratio", **dr_ratio)
     emit("phases25-26", wall_s=time.perf_counter() - t_mesh)
     emit("clock after phase 26", elapsed_s=time.perf_counter() - t_main)

@@ -24,6 +24,10 @@ calls, which is what the reference's trip counts recover), and
     the same on the card, where the kernel launches through ctypes, and on
     the CPU, where its plain version runs, in a forward or a backward.
     ``kernel_calls`` counts the entry calls by kernel;
+  * live bytes (``analysis.memory``): the counter keeps a
+    :class:`~repro_torch.analysis.memory.LiveBytes` of the storages the
+    call creates on its device (``live``), in the same pass; the kernel
+    entry points report their outputs and workspace to it;
   * ``DTensor``s (a program on a device mesh): the counter lets ``DTensor``
     run each operation and counts the local operations and functional
     collectives it issues, so the count is this rank's local program (the
@@ -46,6 +50,8 @@ from torch.distributed.tensor import DTensor
 from torch.distributed.tensor._sharding_prop import ShardingPropagator
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
+
+from repro_torch.analysis.memory import LiveBytes, local_bytes, tensors
 
 # functional collectives (namespace _c10d_functional) by the reference's kind
 _COLLECTIVES = {
@@ -119,24 +125,9 @@ class ModuleCost:
                 mine[k] += v * factor
 
 
-def _tensors(tree):
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, (list, tuple)):
-        for x in tree:
-            yield from _tensors(x)
-    elif isinstance(tree, dict):
-        for x in tree.values():
-            yield from _tensors(x)
-
-
-def _nbytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in _tensors(tree))
-
-
 def rtype(out) -> str:
     """A result's type in the reference's HLO notation, e.g. ``bf16[8,128]``."""
-    t = next(_tensors(out), None)
+    t = next(tensors(out), None)
     if t is None:
         return ""
     return f"{_DTYPE_NAMES.get(t.dtype, str(t.dtype))}[{','.join(map(str, t.shape))}]"
@@ -199,13 +190,17 @@ class CostCounter(TorchDispatchMode):
     ``on_op(comp, instr, kind, op_name, flops, bytes, coll_bytes, rtype)``,
     if given, is called for every counted operation and kernel call
     (``comp`` is ``forward`` or ``backward``; ``kind`` is the aten
-    operation, or ``kernel`` with ``instr`` the kernel's name)."""
+    operation, or ``kernel`` with ``instr`` the kernel's name).
+
+    ``live`` follows the storages the call creates on ``device`` (None:
+    none) and their peak (``analysis.memory``)."""
 
     counts_kernels = True  # the mark ``ops`` looks for on the mode stack
 
-    def __init__(self, on_op: Optional[Callable] = None):
+    def __init__(self, on_op: Optional[Callable] = None, device=None):
         super().__init__()
         self.cost = ModuleCost()
+        self.live = LiveBytes(device)
         self.on_op = on_op
         self._quiet = 0
 
@@ -214,15 +209,20 @@ class CostCounter(TorchDispatchMode):
             comp = "backward" if torch._C._current_autograd_node() is not None else "forward"
             self.on_op(comp, instr, kind, op_path(), flops, nbytes, coll, rtype(out))
 
-    def kernel(self, name: str, cost: Callable, launch: Callable):
+    def kernel(self, name: str, cost: Callable, launch: Callable, workspace: Callable,
+               operands):
         """A hand-written kernel's entry point (``ops._run``): its analytic
-        cost, and nothing of what runs inside."""
+        cost, its new outputs beside ``operands`` and ``workspace()``, the
+        bytes it allocates (> 0) and frees (< 0) beyond them in order, and
+        nothing of what runs inside."""
         self._quiet += 1
         try:
             flops, nbytes = cost()
+            steps = workspace()  # before the launch grows it
             out = launch()
         finally:
             self._quiet -= 1
+        self.live.kernel(out, operands, steps)
         c = self.cost
         c.flops += flops
         c.bytes += nbytes
@@ -252,26 +252,28 @@ class CostCounter(TorchDispatchMode):
         coll = 0.0
         if func.namespace == "_c10d_functional":
             kind = _COLLECTIVES.get(name)
-            nbytes = 0.0 if kind is None else float(_nbytes(args) + _nbytes(out))
+            nbytes = 0.0 if kind is None else float(local_bytes(args) + local_bytes(out))
             if kind is not None:
-                coll = float(_nbytes(out))
+                coll = float(local_bytes(out))
                 self.cost.coll_bytes[kind] += coll
                 self.cost.coll_counts[kind] += 1
         elif func.is_view or name in _FREE:
             nbytes = 0.0
         elif name in _GATHERS:
-            nbytes = 2.0 * _nbytes(out)
+            nbytes = 2.0 * local_bytes(out)
         elif name in _UPDATES:
             upd = args[_UPDATES[name]] if len(args) > _UPDATES[name] else None
-            nbytes = 2.0 * _nbytes(upd)
+            nbytes = 2.0 * local_bytes(upd)
         else:
-            nbytes = float(_nbytes(args) + _nbytes(kwargs) + _nbytes(out))
+            nbytes = float(local_bytes(args) + local_bytes(kwargs) + local_bytes(out))
             if name in _WRITE_ONLY_SELF:
-                nbytes -= _nbytes(args[0])
+                nbytes -= local_bytes(args[0])
         self.cost.flops += flops
         self.cost.bytes += nbytes
         if flops or nbytes or coll:
             self._record(str(func), name, flops, nbytes, coll, out)
+        if not func.is_view:
+            self.live.track(out, (args, kwargs))
         return out
 
 

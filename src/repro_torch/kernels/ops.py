@@ -19,6 +19,14 @@ A fake tensor (``FakeTensorMode``, the dry-run) takes the plain version,
 whose operations on fake tensors compute shapes and nothing else; under a
 counter the call reads its kernel's analytic cost all the same.
 
+Memory (``repro_torch.analysis.memory``): under the counter each entry
+point also reports what its kernel holds on the card beyond its operands
+and its new outputs, which the counter follows as they are: the bytes the
+``*_workspace`` functions below give, allocated (> 0) and freed (< 0) in
+order; an entry point with none holds nothing more. The plain versions'
+temporaries do not show, so a call reads the same on the card, on the CPU
+and on fake tensors.
+
 Under a device mesh (``launch/partitioning.py``), ``flash_attention`` and
 ``paged_attention`` take ``DTensor`` inputs: the kernel runs on each rank's
 local shards wherever its math is independent along the sharded dimension
@@ -29,7 +37,7 @@ cost counter sees as a collective; nothing switches to the plain version.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,8 +63,9 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 def _cost_sink():
     """The innermost cost counter on the dispatch-mode stack (a mode with
-    ``counts_kernels`` set and ``kernel(name, cost, launch)``, which calls
-    ``cost()`` -> (flops, bytes) and ``launch()`` with its own counting
+    ``counts_kernels`` set and ``kernel(name, cost, launch, workspace,
+    operands)``, which calls ``cost()`` -> (flops, bytes), ``workspace()``
+    -> bytes allocated and freed and ``launch()`` with its own counting
     suspended and returns what ``launch`` returns), or None."""
     if not torch._C._len_torch_dispatch_stack():
         return None
@@ -67,15 +76,18 @@ def _cost_sink():
 
 
 def _run(name: str, on: torch.Tensor, kernel: Callable, plain: Callable,
-         cost: Callable[..., Tuple[float, float]], *args, **kw):
+         cost: Callable[..., Tuple[float, float]], *args,
+         workspace: Optional[Callable[..., List[int]]] = None, **kw):
     """``kernel(*args, **kw)`` when ``on`` lies on the card, else
     ``plain(*args, **kw)``; under a cost counter, reported as one call of
-    ``name`` costing ``cost(*args, **kw)``."""
+    ``name`` costing ``cost(*args, **kw)`` and holding
+    ``workspace(*args, **kw)`` (None: nothing)."""
     fn = plain if is_fake(on) else (kernel if _on_cuda(on) else plain)
     sink = _cost_sink()
     if sink is None:
         return fn(*args, **kw)
-    return sink.kernel(name, lambda: cost(*args, **kw), lambda: fn(*args, **kw))
+    return sink.kernel(name, lambda: cost(*args, **kw), lambda: fn(*args, **kw),
+                       lambda: [] if workspace is None else workspace(*args, **kw), args)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -99,7 +111,8 @@ def page_move_cost(pool, src_ids, dst_ids) -> Tuple[float, float]:
     """The real entries' rows (ids that differ, both in range) read and
     written once, and the ids."""
     rows = pool.shape[0]
-    s, d = src_ids.to(torch.int64), dst_ids.to(torch.int64)
+    # on the host, so that counting allocates nothing on the card
+    s, d = src_ids.cpu().to(torch.int64), dst_ids.cpu().to(torch.int64)
     real = int(((s != d) & (s >= 0) & (s < rows) & (d >= 0) & (d < rows)).sum())
     row = pool[0].numel() * pool.element_size()
     return 0.0, float(2 * real * row + _nbytes(src_ids) + _nbytes(dst_ids))
@@ -137,6 +150,29 @@ def flash_attention_cost(q, k, v, *, causal: bool = True,
     return 4.0 * B * nh * dh * pairs, float(2 * _nbytes(q) + _nbytes(k) + _nbytes(v))
 
 
+def page_move_workspace(pool, src_ids, dst_ids) -> List[int]:
+    """The growth of the per-device workspace on the card, kept after the
+    call (``page_copy.workspace_growth``); nothing on the CPU or on fake
+    tensors, where the plain version keeps none."""
+    if is_fake(pool) or not _on_cuda(pool):
+        return []
+    return _pc.workspace_growth(pool.device, pool.shape[0], src_ids.shape[0],
+                                pool.shape[1] * pool.element_size())
+
+
+def paged_attention_workspace(q, k_pages, v_pages, block_tables, seq_lens) -> List[int]:
+    """The float32 split-K partials (``paged_attention.split_partials``),
+    during the call only; their split count from the card's SMs, or the
+    H100's where the call does not run on a card (the CPU, fake tensors)."""
+    B, nh, dh = q.shape
+    if not is_fake(q) and _on_cuda(q):
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    else:
+        sms = _pa.H100_SMS
+    part = 4 * _pa.split_partials(B, nh, k_pages.shape[2], dh, block_tables.shape[1], sms)[3]
+    return [part, -part]
+
+
 def hot_bins(page_ids: torch.Tensor, counts_in: torch.Tensor, *, num_bins: int = 6):
     """(counts_out i32[P], bins i32[P]); see ``ref.hot_bins_ref``."""
     return _run("hot_bins", counts_in, _hb.hot_bins, ref.hot_bins_ref, hot_bins_cost,
@@ -152,7 +188,7 @@ def page_copy(src_pool, dst_pool, src_ids, dst_ids):
 def page_move(pool, src_ids, dst_ids):
     """In place intra-pool moves with gather semantics; returns pool."""
     return _run("page_move", pool, _pc.page_move, ref.page_move_ref, page_move_cost,
-                pool, src_ids, dst_ids)
+                pool, src_ids, dst_ids, workspace=page_move_workspace)
 
 
 def _any_dtensor(*ts) -> bool:
@@ -171,7 +207,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
         return attention_on_shards(call, q, (k_pages, v_pages), (block_tables, seq_lens),
                                    q_heads=1, kv_heads=2, kv_batch=None)
     return _run("paged_attention", q, _pa.paged_attention, ref.paged_attention_ref,
-                paged_attention_cost, q, k_pages, v_pages, block_tables, seq_lens)
+                paged_attention_cost, q, k_pages, v_pages, block_tables, seq_lens,
+                workspace=paged_attention_workspace)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):

@@ -16,7 +16,7 @@ share one stream.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -42,6 +42,22 @@ def _lib():
 # the last call, 32 words apart, then the two alternating real counts
 _CTR_WORDS = 5 * 32
 _CTR_CLASSES = [0, 32, 64]
+_GROWN = ("marks", "plan", "cls", "scratch")  # the buffers a call may replace
+
+
+def _grown(have: Dict[str, int], rows: int, m: int, row_bytes: int):
+    """The buffers a workspace holding ``have`` (elements by name) replaces
+    for a call of ``rows`` rows of ``row_bytes`` and ``m`` entries, in the
+    order ``_Workspace.fit`` allocates them: (name, dtype, elements)."""
+    out = []
+    if have["marks"] < 2 * rows:
+        out.append(("marks", torch.uint8, 2 * rows))
+    if have["cls"] < m:
+        out += [("plan", torch.int32, 2 * m), ("cls", torch.int32, m)]
+    # the worst case: every real entry staged
+    if have["scratch"] < min(m, rows) * row_bytes:
+        out.append(("scratch", torch.uint8, min(m, rows) * row_bytes))
+    return out
 
 
 class _Workspace:
@@ -56,16 +72,26 @@ class _Workspace:
         self.ctr = torch.zeros(_CTR_WORDS, dtype=torch.int32, device=device)
         self.scratch = torch.empty(0, dtype=torch.uint8, device=device)
 
+    def held(self) -> Dict[str, int]:
+        return {name: getattr(self, name).numel() for name in _GROWN}
+
     def fit(self, rows: int, m: int, row_bytes: int) -> None:
-        if self.marks.numel() < 2 * rows:
-            self.marks = torch.zeros(2 * rows, dtype=torch.uint8, device=self.device)
-        if self.cls.numel() < m:
-            self.plan = torch.empty(2 * m, dtype=torch.int32, device=self.device)
-            self.cls = torch.empty(m, dtype=torch.int32, device=self.device)
-        # the worst case: every real entry staged
-        if self.scratch.numel() < min(m, rows) * row_bytes:
-            self.scratch = torch.empty(min(m, rows) * row_bytes, dtype=torch.uint8,
-                                       device=self.device)
+        for name, dtype, n in _grown(self.held(), rows, m, row_bytes):
+            make = torch.zeros if name == "marks" else torch.empty
+            setattr(self, name, make(n, dtype=dtype, device=self.device))
+
+
+def workspace_growth(device: torch.device, rows: int, m: int, row_bytes: int) -> List[int]:
+    """The bytes the next ``page_move`` call of that shape on ``device``
+    allocates (> 0) and frees (< 0), in order, while it grows the
+    workspace: a first call makes the counter words, then each new buffer
+    is allocated before the one it replaces is freed."""
+    ws = _WORKSPACES.get(device)
+    steps = [] if ws is not None else [_CTR_WORDS * 4]
+    have = ws.held() if ws is not None else dict.fromkeys(_GROWN, 0)
+    for name, dtype, n in _grown(have, rows, m, row_bytes):
+        steps += [n * dtype.itemsize, -have[name] * dtype.itemsize]
+    return steps
 
 
 _WORKSPACES: Dict[torch.device, _Workspace] = {}

@@ -82,11 +82,24 @@ def team_fits(dh: int, itemsize: int, g: int) -> bool:
     return 1 << (per_team - 1).bit_length() <= min(8, lanes)
 
 
+H100_SMS = 132  # the SMs a plan assumes for a call that runs on no card
+
+
+def split_partials(B: int, nh: int, nkv: int, dh: int, n_p: int, sms: int) -> tuple:
+    """(n_split, per, n_acc, floats) of a call shape on ``sms`` SMs: the
+    split plan (``split_plan``) and its f32 partials, ``floats`` in one
+    buffer: acc [B, nkv, n_split, g, dh] (``n_acc``), then (m, l)
+    [B, nkv, n_split, g, 2]."""
+    n_split, per = split_plan(B, nkv, n_p, sms)
+    n_acc = B * nh * n_split * dh
+    return n_split, per, n_acc, n_acc + n_acc // dh * 2
+
+
 _PLANS: dict = {}
 
 
 def _plan(dev: torch.device, B: int, nh: int, nkv: int, dh: int, itemsize: int, n_p: int):
-    """(n_split, per, partial floats) of a call shape, worked out once per
+    """``split_partials`` of a call shape on the card, worked out once per
     shape and device: a decode step makes the same call in every layer."""
     key = (dev.index, B, nh, nkv, dh, itemsize, n_p)
     plan = _PLANS.get(key)
@@ -95,8 +108,7 @@ def _plan(dev: torch.device, B: int, nh: int, nkv: int, dh: int, itemsize: int, 
         if not team_fits(dh, itemsize, g):
             raise ValueError(f"paged_attention: {g} query heads per KV head is too many at dh {dh}")
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        n_split, per = split_plan(B, nkv, n_p, sms)
-        plan = _PLANS[key] = (n_split, per, B * nkv * n_split * g * dh)
+        plan = _PLANS[key] = split_partials(B, nh, nkv, dh, n_p, sms)
     return plan
 
 
@@ -131,11 +143,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens) -> torch.Tensor
     if (q_ptr | k_ptr | v_ptr) % 16:
         raise ValueError("q, k_pages and v_pages must start on 16-byte boundaries")
     n_p = block_tables.shape[1]
-    n_split, per, n_acc = _plan(dev, B, nh, nkv, dh, q.element_size(), n_p)
+    n_split, per, n_acc, floats = _plan(dev, B, nh, nkv, dh, q.element_size(), n_p)
     out = torch.empty_like(q)
-    # the f32 partials in one buffer: acc [B, nkv, n_split, g, dh], then
-    # (m, l) [B, nkv, n_split, g, 2]
-    part = torch.empty(n_acc + n_acc // dh * 2, dtype=torch.float32, device=dev)
+    part = torch.empty(floats, dtype=torch.float32, device=dev)
     fn = typed_fn("paged_attention", [_P] * 8 + [_I] * 8 + [_F, _I, _P])
     err = fn(
         q_ptr, k_ptr, v_ptr, block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),

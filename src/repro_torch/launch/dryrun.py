@@ -15,12 +15,15 @@ records:
     entry points report their analytic costs, and on fake tensors launch
     nothing);
   * ``analysis.roofline.compute_terms`` on H100 constants;
-  * ``memory``: argument and output bytes from the local shard shapes.
-    ``temp_bytes`` and ``peak_bytes`` are null: nothing measures them on fake
-    tensors (the reference reads XLA's buffer assignment, which eager
-    PyTorch has not). ``xla_cost_analysis`` is kept as a key, with nulls;
-    ``compile_seconds`` is null (nothing compiles) and ``count_seconds`` is
-    the counted run's wall.
+  * ``memory``: argument and output bytes from the local shard shapes;
+    ``temp_bytes`` and ``peak_bytes`` from the same counted run, whose
+    counter follows the live storages of rank 0's blocks on the cell's fake
+    device (``analysis.memory``: blocks of the CUDA caching allocator; the
+    reference reads XLA's buffer assignment, which eager PyTorch has not):
+    ``peak_bytes`` is the arguments plus the highest live bytes the run
+    created, ``temp_bytes`` the peak less the arguments. ``generated_code_bytes``
+    is null, and so is ``xla_cost_analysis``, kept as a key; ``compile_seconds``
+    is null (nothing compiles) and ``count_seconds`` is the counted run's wall.
 
 Results land in ``results/dryrun_torch/<testmesh|singlepod|multipod>/
 <arch>__<shape>.json``.
@@ -45,7 +48,8 @@ from typing import Any, Dict
 import torch
 import torch.distributed as dist
 
-from repro_torch.analysis.hlo_cost import module_cost
+from repro_torch.analysis import memory
+from repro_torch.analysis.hlo_cost import CostCounter
 from repro_torch.analysis.roofline import compute_terms
 from repro_torch.configs import ARCH_NAMES, applicable_shapes, get_config, get_shape
 from repro_torch.core.manager import resolve_device
@@ -120,21 +124,6 @@ def build_cell(cfg, shape, mesh, rules, *, remat: str = "block", microbatch: int
     return api.decode, (params, token, cache)
 
 
-def _local_bytes(tree) -> int:
-    """Bytes of this rank's blocks of every tensor in ``tree``."""
-    from torch.distributed.tensor import DTensor
-
-    if isinstance(tree, DTensor):
-        tree = tree.to_local()
-    if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
-    if isinstance(tree, dict):
-        return sum(_local_bytes(v) for v in tree.values())
-    if isinstance(tree, (tuple, list)):
-        return sum(_local_bytes(v) for v in tree)
-    return 0
-
-
 def _fake_group(n: int) -> None:
     """This process as rank 0 of a fake process group of ``n`` ranks."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -164,12 +153,12 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     with FakeTensorMode(), part.use_partitioning(mesh, rules):
         fn, args = build_cell(cfg, shape, mesh, rules, remat=remat, microbatch=microbatch,
                               device=dev)
-        arg_bytes = _local_bytes(args)
         t0 = time.time()
-        out = []
-        mc = module_cost(lambda: out.append(fn(*args)))
+        with CostCounter(device=dev) as counter:
+            out = fn(*args)
         count_s = time.time() - t0
-        out_bytes = _local_bytes(out)
+        mem = memory.analysis(args, out, counter.live).as_dict()
+        mc = counter.cost
 
     terms = compute_terms(cfg, shape, n_chips, mc.flops, mc.bytes, float(mc.coll_total))
     result = {
@@ -190,8 +179,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "collective_counts": dict(mc.coll_counts),
         "collective_bytes_total": mc.coll_total,
         "kernel_calls": dict(mc.kernel_calls),
-        "memory": {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
-                   "temp_bytes": None, "peak_bytes": None, "generated_code_bytes": None},
+        "memory": mem,
         "roofline": {
             "compute_s": terms.compute_s,
             "memory_s": terms.memory_s,
@@ -215,6 +203,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"count={count_s:6.1f}s flops/dev={mc.flops:.4e} bytes/dev={mc.bytes:.4e} "
               f"coll={mc.coll_total:.4e}B {dict(mc.coll_bytes)} dom={r['dominant']:10s} "
               f"useful={r['useful_ratio']:.3f} frac={r['roofline_fraction']:.3f}")
+        print(f"    memory_analysis: {mem}")
     return result
 
 

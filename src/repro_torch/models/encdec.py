@@ -21,6 +21,7 @@ from typing import Any, Dict, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.manager import resolve_device
 from repro_torch.launch.partitioning import gather_fsdp, shard, take_rows
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import chunked_ce_loss, run_stack, take
@@ -162,6 +163,9 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg, *, remat: str =
 
 # --------------------------------------------------------------------------- decode
 def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> EncDecCache:
+    """A zero cache on ``device`` (``None`` = the card, which raises where
+    there is none)."""
+    device = resolve_device(device, what="the decode cache")
     dt = dtype or cfg.cdtype
     Ld, h, dh, T = cfg.num_layers, cfg.num_kv_heads, cfg.d_head, cfg.max_encoder_len
 

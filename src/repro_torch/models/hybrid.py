@@ -21,6 +21,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.manager import resolve_device
 from repro_torch.launch.partitioning import gather_fsdp, shard
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -180,6 +181,9 @@ def prefill(params: Params, tokens: torch.Tensor, cfg, max_len: int = 0):
 
 # --------------------------------------------------------------------------- decode
 def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> HybridCache:
+    """A zero cache on ``device`` (``None`` = the card, which raises where
+    there is none)."""
+    device = resolve_device(device, what="the decode cache")
     groups, per_group, tail = _layout(cfg)
     dt = dtype or cfg.cdtype
     kv_shape = (groups, batch, _window(cfg, max_len), cfg.num_kv_heads, cfg.d_head)

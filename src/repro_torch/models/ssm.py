@@ -29,6 +29,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.manager import resolve_device
 from repro_torch.models import tuning
 from repro_torch.models.layers import dense_init, rms_norm
 
@@ -235,7 +236,9 @@ def ssm_forward(params: Params, x: torch.Tensor, cfg, *, with_cache: bool = Fals
 
 
 def init_ssm_cache(cfg, batch: int, lead=(), device=None) -> SSMCache:
-    """Zero decode state for ``batch`` lanes, with leading axes ``lead``."""
+    """Zero decode state for ``batch`` lanes, with leading axes ``lead``, on
+    ``device`` (``None`` = the card, which raises where there is none)."""
+    device = resolve_device(device, what="the decode cache")
     d, di, H, P, N, G, conv_dim = _dims(cfg)
     return SSMCache(
         conv=torch.zeros((*lead, batch, cfg.ssm_conv_width - 1, conv_dim), dtype=cfg.cdtype,

@@ -12,6 +12,7 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
+from repro_torch.core.manager import resolve_device
 from repro_torch.launch.partitioning import shard
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -103,8 +104,10 @@ def prefill(params: Params, tokens: torch.Tensor, cfg, max_len: int = 0):
 
 
 def init_cache(cfg, batch: int, max_len: int = 0, dtype=None, device=None) -> SSMLMCache:
-    """Zero state for ``batch`` lanes (``max_len`` and ``dtype`` are unused:
+    """Zero state for ``batch`` lanes on ``device`` (``None`` = the card,
+    which raises where there is none; ``max_len`` and ``dtype`` are unused:
     the state's dtypes are the config's, as in the reference)."""
+    device = resolve_device(device, what="the decode cache")
     return SSMLMCache(layers=S.init_ssm_cache(cfg, batch, (cfg.num_layers,), device), pos=0)
 
 

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.manager import resolve_device
 from repro_torch.launch.partitioning import attention_on_shards, gather_fsdp, shard, take_rows
 from repro_torch.models import layers as L
 from repro_torch.models import moe, tuning
@@ -241,6 +242,9 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg, *, remat: str =
 
 # --------------------------------------------------------------------------- decode
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> KVCache:
+    """A zero cache on ``device`` (``None`` = the card, which raises where
+    there is none)."""
+    device = resolve_device(device, what="the decode cache")
     dt = dtype or cfg.cdtype
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.d_head)
     return KVCache(k=torch.zeros(shape, dtype=dt, device=device),

@@ -2,7 +2,8 @@
 on the four cells of ``tests/test_dryrun_small.py``, with that file's
 assertions: each cell is counted as rank 0 of a fake process group of 16
 ranks on fake CPU tensors, in its own subprocess (every cell starts at
-once), and writes ``flops_per_device > 0`` and a dominant roofline term.
+once), and writes ``flops_per_device > 0``, a dominant roofline term and
+integer ``temp_bytes`` / ``peak_bytes`` from the same counted run.
 
 Also: the counter counts rank 0's local program; and the sharding divides
 the work. The test-mesh ``qwen2.5-3b train_4k``
@@ -62,7 +63,11 @@ def test_cell_counts_on_test_mesh(arch, shape, extra, cells):
     assert data["n_chips"] == 16 and data["mesh"] == ([2, 2, 4] if extra else [4, 4])
     assert data["flops_per_device"] > 0
     assert data["roofline"]["dominant"] in ("compute", "memory", "collective")
-    assert data["memory"]["argument_bytes"] > 0 and data["memory"]["peak_bytes"] is None
+    mem = data["memory"]
+    assert mem["argument_bytes"] > 0
+    assert isinstance(mem["peak_bytes"], int) and isinstance(mem["temp_bytes"], int)
+    assert mem["peak_bytes"] >= max(mem["argument_bytes"], mem["output_bytes"])
+    assert mem["temp_bytes"] == mem["peak_bytes"] - mem["argument_bytes"]
     assert data["xla_cost_analysis"] == {"flops": None, "bytes": None}
 
 

@@ -30,9 +30,10 @@ from repro.models import encdec as Jenc
 from repro.models import hybrid as Jhyb
 from repro.models import ssm_lm as Jssm
 from repro.models.model import get_model as jax_model
+from repro_torch.analysis.memory import tensors
 from repro_torch.configs import get_config
 from repro_torch.launch import train
-from repro_torch.models import encdec, hybrid, ssm_lm
+from repro_torch.models import encdec, hybrid, ssm, ssm_lm, transformer
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.model import get_model
 from repro_torch.training.optimizer import named_leaves, tree_map
@@ -157,6 +158,32 @@ def test_model_runs_on_the_card_unless_told(name):
             api.init_cache(1, 8)
     p = api.init(seed=0, device="cpu")
     assert all(t.device.type == "cpu" for _, t in named_leaves(p))
+
+
+# the five cache builders, as the module functions: (arch, build(cfg, **device))
+CACHE_BUILDERS = {
+    "transformer.init_kv_cache": ("qwen2.5-3b",
+                                  lambda c, **kw: transformer.init_kv_cache(c, 1, 8, **kw)),
+    "ssm.init_ssm_cache": ("mamba2-130m", lambda c, **kw: ssm.init_ssm_cache(c, 1, **kw)),
+    "ssm_lm.init_cache": ("mamba2-130m", lambda c, **kw: ssm_lm.init_cache(c, 1, **kw)),
+    "hybrid.init_cache": ("zamba2-1.2b", lambda c, **kw: hybrid.init_cache(c, 1, 8, **kw)),
+    "encdec.init_cache": ("whisper-tiny", lambda c, **kw: encdec.init_cache(c, 1, 8, **kw)),
+}
+
+
+@pytest.mark.parametrize("name", CACHE_BUILDERS)
+def test_cache_builder_runs_on_the_card_unless_told(name):
+    """With no device named, a cache builder resolves the card (raising
+    where there is none), as ``ModelAPI.init_cache`` does; ``"cpu"`` builds
+    on the CPU."""
+    arch, build = CACHE_BUILDERS[name]
+    cfg = get_config(arch).smoke()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(cfg)
+    cache = build(cfg, device="cpu")
+    leaves = list(tensors(cache))
+    assert leaves and all(t.device.type == "cpu" for t in leaves)
 
 
 # ------------------------------------------------------------ loss, gradients
