@@ -14,10 +14,12 @@ are host bookkeeping, and every data movement goes through the kernels of
     ``page_copy`` (staging pool -> page pool), trash-padded likewise.
 
 The pool tensor is updated in place (the reference donates it).
+``moved_pages`` counts the pages migrations moved and ``launched_slots``
+the plan entries of every ``page_move`` call, padding included: their ratio
+is the share of the launched work that moved a page.
 """
 from __future__ import annotations
 
-import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -25,6 +27,7 @@ import torch
 
 from repro_torch.core.types import TIER_FAST
 from repro_torch.kernels import ops
+from repro_torch.runtime.spans import span
 
 
 class PagePool:
@@ -50,9 +53,15 @@ class PagePool:
         self._free_fast = list(range(fast_capacity - 1, -1, -1))
         self._free_slow = list(range(self.trash - 1, fast_capacity - 1, -1))
         self.moved_pages = 0  # cumulative pages moved by migrations
-        self.move_seconds = 0.0  # host time inside page_move calls
+        self.launched_slots = 0  # cumulative plan entries of page_move calls
+        self._seconds = {"move": 0.0}
         self.fault_injector = None
         self.last_failed = (np.empty(0, np.int64), np.empty(0, np.int64))
+
+    @property
+    def move_seconds(self) -> float:
+        """Host time inside ``page_move`` calls."""
+        return self._seconds["move"]
 
     def set_fault_injector(self, injector) -> None:
         """Attach (or with ``None`` detach) a ``FaultInjector``."""
@@ -117,53 +126,56 @@ class PagePool:
         destinations within the same ``page_move`` call (write-after-read,
         which the kernel's gather-then-scatter makes safe).
         """
-        dem = np.asarray(demote_ids).ravel()
-        pro = np.asarray(promote_ids).ravel()
-        dem = dem[dem >= 0]
-        pro = pro[pro >= 0]
-        fi = self.fault_injector
-        failed_dem, failed_pro = [], []
-        src, dst = [], []
-        for p in dem:
-            if fi is not None and int(self.frame[p]) >= self.fast_capacity:
-                continue  # already physically slow: an earlier promote failed
-            if fi is not None and not fi.attempt_move():
-                failed_dem.append(int(p))
-                continue
-            f = int(self.frame[p])
-            src.append(f)
-            dst.append(self._free_slow.pop())
-            self.frame[p] = dst[-1]
-            self._free_fast.append(f)  # reusable by this batch's promotes
-        freed_slow = []
-        for p in pro:
-            if fi is not None:
-                if int(self.frame[p]) < self.fast_capacity:
-                    continue  # already physically fast: a demote failed
-                if not self._free_fast:
-                    fi.no_frame += 1
-                    failed_pro.append(int(p))
+        with span("dataplane.plan"):
+            dem = np.asarray(demote_ids).ravel()
+            pro = np.asarray(promote_ids).ravel()
+            dem = dem[dem >= 0]
+            pro = pro[pro >= 0]
+            fi = self.fault_injector
+            failed_dem, failed_pro = [], []
+            src, dst = [], []
+            for p in dem:
+                if fi is not None and int(self.frame[p]) >= self.fast_capacity:
+                    continue  # already physically slow: an earlier promote failed
+                if fi is not None and not fi.attempt_move():
+                    failed_dem.append(int(p))
                     continue
-                if not fi.attempt_move():
-                    failed_pro.append(int(p))
-                    continue
-            f = int(self.frame[p])
-            src.append(f)
-            dst.append(self._free_fast.pop())
-            self.frame[p] = dst[-1]
-            freed_slow.append(f)  # released only after the sweep
-        self.last_failed = (np.asarray(failed_dem, np.int64), np.asarray(failed_pro, np.int64))
+                f = int(self.frame[p])
+                src.append(f)
+                dst.append(self._free_slow.pop())
+                self.frame[p] = dst[-1]
+                self._free_fast.append(f)  # reusable by this batch's promotes
+            freed_slow = []
+            for p in pro:
+                if fi is not None:
+                    if int(self.frame[p]) < self.fast_capacity:
+                        continue  # already physically fast: a demote failed
+                    if not self._free_fast:
+                        fi.no_frame += 1
+                        failed_pro.append(int(p))
+                        continue
+                    if not fi.attempt_move():
+                        failed_pro.append(int(p))
+                        continue
+                f = int(self.frame[p])
+                src.append(f)
+                dst.append(self._free_fast.pop())
+                self.frame[p] = dst[-1]
+                freed_slow.append(f)  # released only after the sweep
+            self.last_failed = (np.asarray(failed_dem, np.int64),
+                                np.asarray(failed_pro, np.int64))
         n = len(src)
         M = self.plan_slots
         for lo in range(0, n, M):
-            s = np.full(M, self.trash, np.int64)
-            d = np.full(M, self.trash, np.int64)
-            s[: len(src[lo : lo + M])] = src[lo : lo + M]
-            d[: len(dst[lo : lo + M])] = dst[lo : lo + M]
-            s_t, d_t = self._ids(s), self._ids(d)
-            t0 = time.perf_counter()
-            ops.page_move(self.pool, s_t, d_t)
-            self.move_seconds += time.perf_counter() - t0
+            with span("dataplane.upload"):
+                s = np.full(M, self.trash, np.int64)
+                d = np.full(M, self.trash, np.int64)
+                s[: len(src[lo : lo + M])] = src[lo : lo + M]
+                d[: len(dst[lo : lo + M])] = dst[lo : lo + M]
+                s_t, d_t = self._ids(s), self._ids(d)
+            with span("dataplane.launch", self._seconds, "move"):
+                ops.page_move(self.pool, s_t, d_t)
+            self.launched_slots += M
         self._free_slow.extend(freed_slow)
         self.moved_pages += n
         return n

@@ -20,12 +20,13 @@ default raises instead of running on the CPU.
 (the policy call, which on the card only enqueues work), ``sync`` (the
 drained-id copies to the host, which wait for the tick to finish) and
 ``execute`` (the data plane's host loop, including its ``page_move``
-launches).
+launches). ``device_reads`` counts the blocking host reads of the state's
+tensors, on every path. Each phase is also a span
+(``repro_torch.runtime.spans``), seen under ``torch.profiler``.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,6 +51,7 @@ from repro_torch.core.types import (
     segments_build_host,
     segments_update_host,
 )
+from repro_torch.runtime.spans import span
 
 
 class TenantHandle(int):
@@ -256,6 +258,7 @@ class CentralManager:
         self.queue_dropped = 0
         self.migration_failures = 0
         self.phase_seconds = {"tick": 0.0, "sync": 0.0, "execute": 0.0}
+        self.device_reads = 0
         self.pool: Optional[PagePool] = None
         if data_plane_elems is not None:
             self.pool = PagePool(
@@ -297,12 +300,12 @@ class CentralManager:
     def pages(self, value: PageState) -> None:
         self._state = self._state._replace(pages=value)
         self._snap = None
-        self._refresh_segs(_np(value.owner))
+        self._refresh_segs(self._read(value.owner))
 
     def _set_pages_churn(self, value: PageState, changed_ids) -> None:
         self._state = self._state._replace(pages=value)
         self._snap = None
-        self._refresh_segs(_np(value.owner), changed=changed_ids)
+        self._refresh_segs(self._read(value.owner), changed=changed_ids)
 
     @property
     def tenants(self) -> TenantState:
@@ -360,8 +363,13 @@ class CentralManager:
         """Host copy of the page metadata (one transfer per epoch)."""
         if self._snap is None:
             pg = self._state.pages
-            self._snap = {"tier": _np(pg.tier), "owner": _np(pg.owner)}
+            self._snap = {"tier": self._read(pg.tier), "owner": self._read(pg.owner)}
         return self._snap
+
+    def _read(self, t: torch.Tensor) -> np.ndarray:
+        """Host copy of a state tensor: a blocking read, counted."""
+        self.device_reads += 1
+        return _np(t)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -370,7 +378,7 @@ class CentralManager:
     def register(self, t_miss: float) -> TenantHandle:
         if not 0.0 < t_miss <= 1.0:
             raise ValueError("t_miss must be in (0, 1] (§3.1)")
-        free = np.flatnonzero(~_np(self.tenants.active))
+        free = np.flatnonzero(~self._read(self.tenants.active))
         if len(free) == 0:
             raise RuntimeError("tenant table full")
         slot = int(free[0])
@@ -437,9 +445,9 @@ class CentralManager:
         owner = owner.copy()
         tier[ids] = TIER_NONE
         owner[ids] = -1
-        count = _np(self.pages.count).copy()
+        count = self._read(self.pages.count).copy()
         count[ids] = 0
-        last_cool = _np(self.pages.last_cool).copy()
+        last_cool = self._read(self.pages.last_cool).copy()
         last_cool[ids] = 0
         self._set_pages_churn(
             self.pages._replace(
@@ -448,15 +456,15 @@ class CentralManager:
             ),
             ids,
         )
-        pending = _np(self._state.pending).copy()
+        pending = self._read(self._state.pending).copy()
         pending[ids] = 0
         self._state = self._state._replace(pending=self._upload(pending))
         # scrub queued migrations of the freed pages now: the slots may be
         # re-allocated before the next tick
         queue = self._state.queue
         if queue is not None and queue.size:
-            qp = _np(queue.page)
-            qd = _np(queue.direction)
+            qp = self._read(queue.page)
+            qd = self._read(queue.direction)
             stale = (qp >= 0) & np.isin(qp, ids)
             if stale.any():
                 self.queue_cancelled += int((stale & (qd != 0)).sum())
@@ -475,24 +483,24 @@ class CentralManager:
         """Engine-side access report: exact per-page access counts since the
         last call (numpy array or tensor), folded into the backlog on the
         device modulo 2^32 (the reference's u32 add)."""
-        if isinstance(counts, torch.Tensor):
-            c = counts.to(device=self.device, dtype=torch.int64) & MASK32
-        else:
-            c = self._upload(np.asarray(counts).astype(np.uint32, copy=False).astype(np.int64))
-        self._state = self._state._replace(pending=(self._state.pending + c) & MASK32)
+        with span("record"):
+            if isinstance(counts, torch.Tensor):
+                c = counts.to(device=self.device, dtype=torch.int64) & MASK32
+            else:
+                c = self._upload(np.asarray(counts).astype(np.uint32, copy=False).astype(np.int64))
+            self._state = self._state._replace(pending=(self._state.pending + c) & MASK32)
 
     # ------------------------------------------------------------- epoch
     def _fold_queue_stats(self, q) -> None:
-        self.queue_enqueued += int(q.enqueued.sum())
-        self.queue_drained += int(q.drained_promote.sum() + q.drained_demote.sum())
-        self.queue_cancelled += int(q.cancelled.sum())
-        self.queue_dropped += int(q.dropped.sum())
+        self.queue_enqueued += int(self._read(q.enqueued.sum()))
+        self.queue_drained += int(self._read(q.drained_promote.sum() + q.drained_demote.sum()))
+        self.queue_cancelled += int(self._read(q.cancelled.sum()))
+        self.queue_dropped += int(self._read(q.dropped.sum()))
 
     def _pool_execute(self, dem_ids, pro_ids, failed_dem: set, failed_pro: set) -> None:
         """Run one drained batch through the pool, folding fault outcomes."""
-        t0 = time.perf_counter()
-        self.pool.execute(dem_ids, pro_ids)
-        self.phase_seconds["execute"] += time.perf_counter() - t0
+        with span("dataplane", self.phase_seconds, "execute"):
+            self.pool.execute(dem_ids, pro_ids)
         if self.pool.fault_injector is None:
             return
         fd, fp = self.pool.last_failed
@@ -510,7 +518,7 @@ class CentralManager:
         stays in its source tier."""
         if not failed_dem and not failed_pro:
             return
-        tier = _np(self.pages.tier).copy()
+        tier = self._read(self.pages.tier).copy()
         if failed_dem:
             tier[list(failed_dem)] = TIER_FAST
         if failed_pro:
@@ -521,72 +529,68 @@ class CentralManager:
 
     def _sync_ids(self, *ids: torch.Tensor) -> List[np.ndarray]:
         """Copy drained id lists to the host (waits for the tick)."""
-        t0 = time.perf_counter()
-        out = [_np(x) for x in ids]
-        self.phase_seconds["sync"] += time.perf_counter() - t0
-        return out
+        with span("epoch.sync", self.phase_seconds, "sync"):
+            return [self._read(x) for x in ids]
 
     def run_epoch(self) -> EpochResult:
         """Policy-thread tick: sample -> policy -> migrate."""
-        self._ensure_segs()
-        t0 = time.perf_counter()
-        self._state, plan, stats = policy.epoch_step(
-            self._state, self.params, max_tenants=self.max_tenants,
-            plan_size=self.plan_size, exact_sampling=self.exact_sampling,
-        )
-        self.phase_seconds["tick"] += time.perf_counter() - t0
-        self.epoch_index += 1
-        self._snap = None
-        fd, fp = set(), set()
-        if stats.queue is not None:
-            if self.pool is not None:
-                dem, pro = self._sync_ids(
-                    stats.queue.drained_demote_ids, stats.queue.drained_promote_ids
+        with span("epoch"):
+            self._ensure_segs()
+            with span("tick", self.phase_seconds, "tick"):
+                self._state, plan, stats = policy.epoch_step(
+                    self._state, self.params, max_tenants=self.max_tenants,
+                    plan_size=self.plan_size, exact_sampling=self.exact_sampling,
                 )
+            self.epoch_index += 1
+            self._snap = None
+            fd, fp = set(), set()
+            if self.pool is not None:
+                ids = (plan.demote, plan.promote) if stats.queue is None else (
+                    stats.queue.drained_demote_ids, stats.queue.drained_promote_ids)
+                dem, pro = self._sync_ids(*ids)
                 self._pool_execute(dem, pro, fd, fp)
-            self._fold_queue_stats(stats.queue)
-        elif self.pool is not None:
-            dem, pro = self._sync_ids(plan.demote, plan.promote)
-            self._pool_execute(dem, pro, fd, fp)
-        self._revert_failed_moves(fd, fp)
-        return EpochResult(stats=stats, plan=plan, flags=_np(self._state.tenants.flagged))
+            with span("epoch.stats"):
+                if stats.queue is not None:
+                    self._fold_queue_stats(stats.queue)
+                self._revert_failed_moves(fd, fp)
+                flags = self._read(self._state.tenants.flagged)
+        return EpochResult(stats=stats, plan=plan, flags=flags)
 
     def run_epochs(
         self, k: int, counts=None, collect_plans: bool = False
     ) -> MultiEpochResult:
         """Run ``k`` policy epochs. ``counts``: None (consume the recorded
         backlog, then idle), [P] (replayed every epoch) or [k, P]."""
-        self._ensure_segs()
-        c = None
-        if counts is not None:
-            if isinstance(counts, torch.Tensor):
-                c = counts.to(device=self.device, dtype=torch.int64) & MASK32
-            else:
-                c = self._upload(np.asarray(counts).astype(np.uint32, copy=False).astype(np.int64))
-        t0 = time.perf_counter()
-        self._state, plans, stats, flagged = policy.multi_epoch(
-            self._state, self.params, c, k=k, max_tenants=self.max_tenants,
-            plan_size=self.plan_size, exact_sampling=self.exact_sampling,
-            collect_plans=collect_plans or (self.pool is not None and not self.queue_size),
-        )
-        self.phase_seconds["tick"] += time.perf_counter() - t0
-        self.epoch_index += k
-        self._snap = None
-        fd, fp = set(), set()
-        if stats.queue is not None:
-            if self.pool is not None:
-                dem, pro = self._sync_ids(
-                    stats.queue.drained_demote_ids, stats.queue.drained_promote_ids
+        with span("epoch"):
+            self._ensure_segs()
+            c = None
+            if counts is not None:
+                if isinstance(counts, torch.Tensor):
+                    c = counts.to(device=self.device, dtype=torch.int64) & MASK32
+                else:
+                    c = self._upload(
+                        np.asarray(counts).astype(np.uint32, copy=False).astype(np.int64))
+            with span("tick", self.phase_seconds, "tick"):
+                self._state, plans, stats, flagged = policy.multi_epoch(
+                    self._state, self.params, c, k=k, max_tenants=self.max_tenants,
+                    plan_size=self.plan_size, exact_sampling=self.exact_sampling,
+                    collect_plans=collect_plans or (self.pool is not None and not self.queue_size),
                 )
+            self.epoch_index += k
+            self._snap = None
+            fd, fp = set(), set()
+            if self.pool is not None:
+                ids = (plans.demote, plans.promote) if stats.queue is None else (
+                    stats.queue.drained_demote_ids, stats.queue.drained_promote_ids)
+                dem, pro = self._sync_ids(*ids)
                 for i in range(k):
                     self._pool_execute(dem[i], pro[i], fd, fp)
-            self._fold_queue_stats(stats.queue)
-        elif self.pool is not None:
-            dem, pro = self._sync_ids(plans.demote, plans.promote)
-            for i in range(k):
-                self._pool_execute(dem[i], pro[i], fd, fp)
-        self._revert_failed_moves(fd, fp)
-        return MultiEpochResult(stats=stats, plans=plans, flags=_np(flagged))
+            with span("epoch.stats"):
+                if stats.queue is not None:
+                    self._fold_queue_stats(stats.queue)
+                self._revert_failed_moves(fd, fp)
+                flags = self._read(flagged)
+        return MultiEpochResult(stats=stats, plans=plans, flags=flags)
 
     # ------------------------------------------------------- data plane
     @property
@@ -634,7 +638,7 @@ class CentralManager:
             self._state = self._state._replace(pages=self.pages._replace(tier=self._upload(tier)))
             self._snap = None
         elif kind == "nan":
-            act = np.flatnonzero(_np(self.tenants.active))
+            act = np.flatnonzero(self._read(self.tenants.active))
             if len(act) == 0:
                 raise RuntimeError("no active tenants to poison")
             a = self.tenants.a_miss.clone()
@@ -648,7 +652,7 @@ class CentralManager:
         queue = self._state.queue
         if queue is None or not queue.size:
             return 0
-        return int(((queue.page >= 0) & (queue.direction != 0)).sum())
+        return int(self._read(((queue.page >= 0) & (queue.direction != 0)).sum()))
 
     def queue_counters(self) -> Dict[str, int]:
         """Cumulative counters: enqueued == drained + cancelled + dropped + depth."""
@@ -677,5 +681,5 @@ class CentralManager:
         return self._snapshot()["tier"][np.asarray(page_ids)]
 
     def fmmr_of(self, h: TenantHandle) -> float:
-        return float(self.tenants.a_miss[int(h)])
+        return float(self._read(self.tenants.a_miss[int(h)]))
 

@@ -9,6 +9,9 @@ Pipeline per epoch:
   5. apply the migrations: instantly, or through the bounded queue
   6. the invariant sentinel
 
+Each step runs inside a ``tick.*`` span (``repro_torch.runtime.spans``): a
+profiler range while one records, one check otherwise.
+
 Victim selection is O(P) and exact: each (tenant, tier) candidate group is
 histogrammed by clamped effective count, and prefix sums over the count
 axis give a per-tenant cutoff plus a residual for the bucket the quota
@@ -73,6 +76,7 @@ from repro_torch.core.types import (
     knob_max,
     pick,
 )
+from repro_torch.runtime.spans import span
 
 # Effective counts at or above this value share one histogram bucket.
 COUNT_CLAMP = 4096
@@ -279,118 +283,124 @@ def _epoch_core(
     T = max_tenants
     C = count_clamp
     dev = pages.owner.device
-    oh = _onehot(pages.owner, T) if segs is None else None
 
     # ---- 1. per-tenant fast/slow sample counts (tier before migration) ----
-    is_fast = pages.tier == TIER_FAST
-    is_slow = pages.tier == TIER_SLOW
-    owner32 = pages.owner.to(_I64)
-    if segs is not None:
-        own_ok = pages.owner >= 0
-        idx = torch.where(own_ok & is_fast, owner32, torch.where(own_ok, T + owner32, 2 * T))
-        tbl = _scatter_add(2 * T + 1, idx, sampled) & MASK32
-        s_fast, s_slow = tbl[:T], tbl[T : 2 * T]
-    else:
-        zero = torch.zeros_like(sampled)
-        s_fast = torch.where(oh & is_fast[None, :], sampled[None, :], zero).sum(1) & MASK32
-        s_slow = torch.where(oh & is_slow[None, :], sampled[None, :], zero).sum(1) & MASK32
-    pages, tenants, cooled, eff = bins.accumulate_and_count(
-        pages, tenants, sampled, params.num_bins, owner_onehot=oh, segs=segs
-    )
-
-    # ---- 2. FMMR update ----------------------------------------------------
-    now = fmmr.fmmr_now(s_fast.to(torch.float32), s_slow.to(torch.float32))
-    ewma = fmmr.update_ewma(tenants.a_miss, now, params.ewma_lambda, scan=scan)
-    ewma = torch.where(tenants.active, ewma, torch.zeros_like(ewma))
-    tenants = tenants._replace(a_miss=ewma)
-
-    # ---- per-(tenant, tier, clamped count) candidate histograms -----------
-    is_owned = pages.owner >= 0
-    owner = torch.clamp(owner32, min=0)
-    slow_cand = is_owned & is_slow
-    fast_cand = is_owned & is_fast
-    if exclude is not None:
-        slow_cand = slow_cand & ~exclude
-        fast_cand = fast_cand & ~exclude
-    key = torch.clamp(_i32(eff), max=C - 1)
-    flat = torch.where(
-        slow_cand, owner * C + key, torch.where(fast_cand, T * C + owner * C + key, 2 * T * C)
-    )
-    hist2 = _scatter_add(2 * T * C + 1, flat, torch.ones_like(flat))
-    hist_slow = hist2[: T * C].reshape(T, C)
-    hist_fast = hist2[T * C : 2 * T * C].reshape(T, C)
-    cum_slow = tiled_cumsum(hist_slow, axis=1)
-    cum_fast = tiled_cumsum(hist_fast, axis=1)
-    n_slow_cand = cum_slow[:, -1]
-    n_fast_cand = cum_fast[:, -1]
-    if exclude is None:
-        fast_hold, slow_hold = n_fast_cand, n_slow_cand
-    else:
-        fast_hold, slow_hold = _per_tenant_pages(pages, T, segs=segs, owner_onehot=oh)
-
-    # ---- 3. proportional reallocation (budget R/2) -------------------------
-    free_fast = torch.clamp(
-        params.fast_capacity - params.alloc_headroom - fast_hold.sum(), min=0
-    )
-    realloc_budget = params.migration_budget // 2
-    band_need = pick(params.promote_band >= 0, params.promote_band, params.hysteresis)
-    band_donor = pick(params.demote_band >= 0, params.demote_band, params.hysteresis)
-    ra = fmmr.reallocate(
-        tenants, fast_hold, free_fast, realloc_budget,
-        fair_mode=params.fair_mode, hysteresis=params.hysteresis,
-        need_band=band_need, donor_band=band_donor,
-    )
-    tenants = tenants._replace(flagged=ra.flagged)
-    ra_moves = ra.give.sum() + ra.take.sum()
-    # a true float32 division, as the reference's (``scalar / tensor`` in
-    # torch multiplies by the reciprocal: two roundings)
-    moves32 = torch.clamp(ra_moves, min=1).to(torch.float32)
-    ra_scale = torch.where(
-        ra_moves > realloc_budget,
-        torch.div(torch.full_like(moves32, 1.0) * knob_f32(realloc_budget), moves32),
-        torch.ones((), dtype=torch.float32, device=dev),
-    )
-    take2 = torch.floor(ra.take.to(torch.float32) * ra_scale).to(_I64)
-    give2 = torch.floor(ra.give.to(torch.float32) * ra_scale).to(_I64)
-    give2 = fmmr.clamp_gives(give2, tenants.arrival, free_fast + take2.sum())
-
-    # ---- 4. intra-tenant rebalance (budget R/2; each pair = 2 moves) -------
-    n_active = torch.clamp(tenants.active.sum(), min=1)
-    rebal_share = (params.migration_budget - realloc_budget) // (2 * n_active)
-    give_eff = torch.minimum(give2, n_slow_cand)
-    take_eff = torch.minimum(take2, n_fast_cand)
-    n_rebal = _pair_count(cum_slow, cum_fast, give_eff, take_eff, rebal_share)
-    n_rebal = torch.where(tenants.active, n_rebal, 0)
-
-    # ---- 5. quotas -> victim masks -> plan ---------------------------------
-    promote_quota = give_eff + n_rebal
-    demote_quota = take_eff + n_rebal
-    promote_mask, demote_mask = _select_victims(
-        key, owner, slow_cand, fast_cand, hist_slow, hist_fast,
-        cum_slow, cum_fast, promote_quota, demote_quota, oh, segs,
-    )
-
-    plan = None
-    if collect_plan:
-        j = torch.arange(plan_size, dtype=_I64, device=dev)
-        cum_p = tiled_cumsum(promote_mask.to(_I64))
-        cum_d = tiled_cumsum(demote_mask.to(_I64))
-        idx_p = _rank_positions(cum_p, j)
-        idx_d = _rank_positions(cum_d, j)
-        plan = MigrationPlan(
-            promote=torch.where(j < cum_p[-1], idx_p, -1),
-            demote=torch.where(j < cum_d[-1], idx_d, -1),
+    with span("tick.sums"):
+        oh = _onehot(pages.owner, T) if segs is None else None
+        is_fast = pages.tier == TIER_FAST
+        is_slow = pages.tier == TIER_SLOW
+        owner32 = pages.owner.to(_I64)
+        if segs is not None:
+            own_ok = pages.owner >= 0
+            idx = torch.where(own_ok & is_fast, owner32, torch.where(own_ok, T + owner32, 2 * T))
+            tbl = _scatter_add(2 * T + 1, idx, sampled) & MASK32
+            s_fast, s_slow = tbl[:T], tbl[T : 2 * T]
+        else:
+            zero = torch.zeros_like(sampled)
+            s_fast = torch.where(oh & is_fast[None, :], sampled[None, :], zero).sum(1) & MASK32
+            s_slow = torch.where(oh & is_slow[None, :], sampled[None, :], zero).sum(1) & MASK32
+    with span("tick.bins"):
+        pages, tenants, cooled, eff = bins.accumulate_and_count(
+            pages, tenants, sampled, params.num_bins, owner_onehot=oh, segs=segs
         )
 
-    stats = EpochStats(
-        fmmr_now=now,
-        fmmr_ewma=ewma,
-        fast_pages=fast_hold,
-        slow_pages=slow_hold,
-        promoted=torch.minimum(promote_quota, n_slow_cand),
-        demoted=torch.minimum(demote_quota, n_fast_cand),
-        cooled=cooled,
-    )
+    # ---- 2. FMMR update ----------------------------------------------------
+    with span("tick.fmmr"):
+        now = fmmr.fmmr_now(s_fast.to(torch.float32), s_slow.to(torch.float32))
+        ewma = fmmr.update_ewma(tenants.a_miss, now, params.ewma_lambda, scan=scan)
+        ewma = torch.where(tenants.active, ewma, torch.zeros_like(ewma))
+        tenants = tenants._replace(a_miss=ewma)
+
+    # ---- per-(tenant, tier, clamped count) candidate histograms -----------
+    with span("tick.hist"):
+        is_owned = pages.owner >= 0
+        owner = torch.clamp(owner32, min=0)
+        slow_cand = is_owned & is_slow
+        fast_cand = is_owned & is_fast
+        if exclude is not None:
+            slow_cand = slow_cand & ~exclude
+            fast_cand = fast_cand & ~exclude
+        key = torch.clamp(_i32(eff), max=C - 1)
+        flat = torch.where(
+            slow_cand, owner * C + key, torch.where(fast_cand, T * C + owner * C + key, 2 * T * C)
+        )
+        hist2 = _scatter_add(2 * T * C + 1, flat, torch.ones_like(flat))
+        hist_slow = hist2[: T * C].reshape(T, C)
+        hist_fast = hist2[T * C : 2 * T * C].reshape(T, C)
+        cum_slow = tiled_cumsum(hist_slow, axis=1)
+        cum_fast = tiled_cumsum(hist_fast, axis=1)
+        n_slow_cand = cum_slow[:, -1]
+        n_fast_cand = cum_fast[:, -1]
+        if exclude is None:
+            fast_hold, slow_hold = n_fast_cand, n_slow_cand
+        else:
+            fast_hold, slow_hold = _per_tenant_pages(pages, T, segs=segs, owner_onehot=oh)
+
+    with span("tick.fmmr"):
+        # ---- 3. proportional reallocation (budget R/2) ---------------------
+        free_fast = torch.clamp(
+            params.fast_capacity - params.alloc_headroom - fast_hold.sum(), min=0
+        )
+        realloc_budget = params.migration_budget // 2
+        band_need = pick(params.promote_band >= 0, params.promote_band, params.hysteresis)
+        band_donor = pick(params.demote_band >= 0, params.demote_band, params.hysteresis)
+        ra = fmmr.reallocate(
+            tenants, fast_hold, free_fast, realloc_budget,
+            fair_mode=params.fair_mode, hysteresis=params.hysteresis,
+            need_band=band_need, donor_band=band_donor,
+        )
+        tenants = tenants._replace(flagged=ra.flagged)
+        ra_moves = ra.give.sum() + ra.take.sum()
+        # a true float32 division, as the reference's (``scalar / tensor`` in
+        # torch multiplies by the reciprocal: two roundings)
+        moves32 = torch.clamp(ra_moves, min=1).to(torch.float32)
+        ra_scale = torch.where(
+            ra_moves > realloc_budget,
+            torch.div(torch.full_like(moves32, 1.0) * knob_f32(realloc_budget), moves32),
+            torch.ones((), dtype=torch.float32, device=dev),
+        )
+        take2 = torch.floor(ra.take.to(torch.float32) * ra_scale).to(_I64)
+        give2 = torch.floor(ra.give.to(torch.float32) * ra_scale).to(_I64)
+        give2 = fmmr.clamp_gives(give2, tenants.arrival, free_fast + take2.sum())
+
+        # ---- 4. intra-tenant rebalance (budget R/2; each pair = 2 moves) ---
+        n_active = torch.clamp(tenants.active.sum(), min=1)
+        rebal_share = (params.migration_budget - realloc_budget) // (2 * n_active)
+        give_eff = torch.minimum(give2, n_slow_cand)
+        take_eff = torch.minimum(take2, n_fast_cand)
+        n_rebal = _pair_count(cum_slow, cum_fast, give_eff, take_eff, rebal_share)
+        n_rebal = torch.where(tenants.active, n_rebal, 0)
+
+    # ---- 5. quotas -> victim masks -> plan ---------------------------------
+    with span("tick.victims"):
+        promote_quota = give_eff + n_rebal
+        demote_quota = take_eff + n_rebal
+        promote_mask, demote_mask = _select_victims(
+            key, owner, slow_cand, fast_cand, hist_slow, hist_fast,
+            cum_slow, cum_fast, promote_quota, demote_quota, oh, segs,
+        )
+
+        plan = None
+        if collect_plan:
+            j = torch.arange(plan_size, dtype=_I64, device=dev)
+            cum_p = tiled_cumsum(promote_mask.to(_I64))
+            cum_d = tiled_cumsum(demote_mask.to(_I64))
+            idx_p = _rank_positions(cum_p, j)
+            idx_d = _rank_positions(cum_d, j)
+            plan = MigrationPlan(
+                promote=torch.where(j < cum_p[-1], idx_p, -1),
+                demote=torch.where(j < cum_d[-1], idx_d, -1),
+            )
+
+        stats = EpochStats(
+            fmmr_now=now,
+            fmmr_ewma=ewma,
+            fast_pages=fast_hold,
+            slow_pages=slow_hold,
+            promoted=torch.minimum(promote_quota, n_slow_cand),
+            demoted=torch.minimum(demote_quota, n_fast_cand),
+            cooled=cooled,
+        )
     return pages, tenants, promote_mask, demote_mask, plan, stats
 
 
@@ -654,23 +664,27 @@ def _step(st: PolicyState, pending, params, max_tenants, plan_size, exact_sampli
           collect_plan, z, scan: bool = False):
     """One fused epoch on ``st`` with the backlog ``pending``; ``scan`` for
     an epoch of ``multi_epoch`` or a fleet (see ``fmmr.update_ewma``)."""
-    sampled = sample_accesses(st.rng, pending, params.sample_period, exact=exact_sampling, z=z)
+    with span("tick.sample"):
+        sampled = sample_accesses(st.rng, pending, params.sample_period, exact=exact_sampling,
+                                  z=z)
     queue_mode = st.queue is not None and st.queue.size > 0
-    depth_before = _real_depth(st.queue) if queue_mode else None
+    with span("tick.queue"):
+        depth_before = _real_depth(st.queue) if queue_mode else None
+        exclude = _inflight_mask(st)
     pages, tenants, pm, dm, plan, stats = _epoch_core(
         st.pages, st.tenants, sampled, params, max_tenants, plan_size, COUNT_CLAMP,
-        collect_plan=collect_plan or queue_mode, exclude=_inflight_mask(st), segs=st.segs,
-        scan=scan,
+        collect_plan=collect_plan or queue_mode, exclude=exclude, segs=st.segs, scan=scan,
     )
-    pages, queue, epoch, stats = _commit(st, pages, tenants, pm, dm, plan, stats, params)
-    stats = stats._replace(
-        sentinel=_sentinel_bits(pages, tenants, params, max_tenants, stats.queue, depth_before)
-    )
+    with span("tick.queue"):
+        pages, queue, epoch, stats = _commit(st, pages, tenants, pm, dm, plan, stats, params)
+    with span("tick.sentinel"):
+        sentinel = _sentinel_bits(pages, tenants, params, max_tenants, stats.queue, depth_before)
+    with span("tick.sample"):  # the sampler's stage consumes the backlog
+        drained = torch.zeros_like(pending)
     new_state = st._replace(
-        pages=pages, tenants=tenants, pending=torch.zeros_like(pending),
-        queue=queue, epoch=epoch,
+        pages=pages, tenants=tenants, pending=drained, queue=queue, epoch=epoch,
     )
-    return new_state, plan, stats
+    return new_state, plan, stats._replace(sentinel=sentinel)
 
 
 def epoch_step(
@@ -754,16 +768,18 @@ def multi_epoch(
     :func:`_trim_stats` names."""
     P = state.pending.shape[0]
     dev = state.pending.device
-    if counts is not None:
-        counts = counts.to(device=dev, dtype=_I64) & MASK32
-    if not exact_sampling and z is None:
-        z = clt_deviates(state.rng, k, P, dev)
+    with span("tick.sample"):
+        if counts is not None:
+            counts = counts.to(device=dev, dtype=_I64) & MASK32
+        if not exact_sampling and z is None:
+            z = clt_deviates(state.rng, k, P, dev)
     plans, stats_k, flagged = [], [], []
     st = state
     for i in range(k):
         pending = st.pending
         if counts is not None:
-            pending = (pending + (counts if counts.dim() == 1 else counts[i])) & MASK32
+            with span("tick.sample"):
+                pending = (pending + (counts if counts.dim() == 1 else counts[i])) & MASK32
         st, plan, stats = _step(
             st, pending, params, max_tenants, plan_size, exact_sampling, collect_plans,
             None if z is None else z[i], scan=True,
