@@ -230,9 +230,11 @@ Phases, one line of numbers each:
      test-mesh qwen2.5-3b cell's FLOPs
      a device x 16 within 1.0-1.5x of phase 24's unsharded step scaled to
      the cell's 256 rows.
-Phases 12-16, 18 and the train steps of 19-22 launch none of the five
-kernels (fleet machines have no page pool; the train step's attention is
-``blocked_attention``, which autograd differentiates); phase 17 launches
+Phases 12-16, 18 and the train steps of 19-22 launch none of the page
+and attention kernels (fleet machines have no page pool; the train step's
+attention is ``blocked_attention``, which autograd differentiates), and the
+fleet's vmapped tick no ``tally``: phase 14's online legs, whose live
+manager ticks alone, launch ``tally`` only, three an epoch; phase 17 launches
 ``flash_attention`` only, 36 times a prefill; the families' prefills launch
 only ``flash_attention`` (zamba2's 6 a prefill, whisper's encoder 4 and its
 teacher-forced decoder 8 more; mamba2's none); phase 23 launches none, phase
@@ -242,6 +244,14 @@ counts), phase 25
 ``flash_attention`` only (36 in 25b's meshed prefill), phase 26 none (fake
 tensors launch nothing). Phases
 12-15 and 23 run with ``vmap``'s batching-rule fallback warning as an error.
+Phase 2b holds ``tally`` against its plain version at the MaxMem benchmark
+cell's three shapes (``perfbench/configs/kvs-gups-8m.json``'s manager over
+8,388,608 pages, without a page pool, its tick's calls captured in the last
+of four epochs of the cell's traffic): bit for bit, three launches an
+epoch, its time, host and device time beside its bound (bytes), the plain
+version's, ``scatter_add`` as the library yardstick (on indices normalised
+beforehand; the port never calls it) and the share of entries that went
+beyond the on-chip window (``tally.SPILLED``).
 Phase 2 also holds ``paged_attention`` and ``flash_attention`` against their
 plain versions, in float32 and bfloat16, at phase 5's shapes (flash at both
 tenants' prompt lengths, 1,024 and 512) and in bfloat16 at phase 7's (16
@@ -325,7 +335,7 @@ def emit(phase: str, **nums) -> None:
     print(f"{phase}: " + " ".join(f"{k}={v}" for k, v in nums.items()), flush=True)
 
 
-# page_move's three kernels, hot_bins' cooperative kernel and the attention
+# page_move's three kernels, hot_bins' cooperative kernel, tally and the attention
 # kernels at the slice's head dim: (source, kernel, template arguments), as
 # phase 1 reports them from ptxas
 PTXAS_KERNELS = (
@@ -333,6 +343,7 @@ PTXAS_KERNELS = (
     ("page_copy", "move_pass_a"),
     ("page_copy", "move_pass_b"),
     ("hot_bins", "hot_bins_kernel"),
+    ("tally", "tally_kernel"),
     ("flash_attention", "flash_attention_hopper", 128),
     ("flash_attention", "flash_attention_kernel", "float", 128),
     ("paged_attention", "paged_split_kernel", "__nv_bfloat16", 128, 4),
@@ -624,6 +635,98 @@ def kernel_checks(torch, np, device):
     for name, r in out.items():
         r["bound_ms"] = bound_ms(r["bytes"])
         emit(f"phase2 {name}", **r)
+    return out
+
+
+# ----------------------------------------------------------------- phase 2b
+TA_CONFIG = os.path.join(ROOT, "perfbench", "configs", "kvs-gups-8m.json")
+TA_EPOCHS = 4  # the cell's warm-up epochs
+
+
+def tally_checks(torch, np, device) -> dict:
+    """Phase 2b: ``tally`` at the benchmark cell's three shapes, the tick's
+    calls captured from the cell's manager (no page pool) in the last of
+    ``TA_EPOCHS`` epochs of the cell's traffic; then the three summed, an
+    epoch's worth. Returns the per-shape rows, keyed ``tally <site>``."""
+    from perfbench import traffic
+    from repro_torch.core import bins
+    from repro_torch.core.manager import CentralManager
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tally as ktally
+
+    with open(TA_CONFIG) as f:
+        c = json.load(f)
+    T = c["max_tenants"]
+    m = CentralManager(
+        num_pages=c["pages"], fast_capacity=c["fast_capacity"],
+        migration_budget=c["migration_budget"], max_tenants=T, num_bins=c["num_bins"],
+        sample_period=c["sample_period"], ewma_lambda=c["ewma_lambda"],
+        hysteresis=c["hysteresis"], seed=SEED, queue_size=c["queue_size"],
+        migration_bandwidth=c["migration_bandwidth"], device=device)
+    pages_of = [torch.as_tensor(m.allocate(m.register(t["t_miss"]), t["pages"]))
+                for t in c["tenants"]]
+    cycle = traffic.epoch_cycle(traffic.page_rates(c, pages_of, SEED, device), TA_EPOCHS, SEED)
+    calls, plain = [], bins.tally
+
+    def spy(idx, size, values=None, *, width=None):
+        calls.append((idx, size, values, width))
+        return plain(idx, size, values, width=width)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    bins.tally = spy
+    try:
+        for e in range(TA_EPOCHS):
+            calls.clear()
+            m.record_access(cycle[e])
+            m.run_epoch()
+    finally:
+        bins.tally = plain
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(launches["tally"] == 3 * TA_EPOCHS and len(calls) == 3,
+          f"the cell's tick launches tally three times an epoch: {launches['tally']} in "
+          f"{TA_EPOCHS} epochs")
+    sites = {2 * T: "sums", T: "bins"}
+    out, epoch = {}, dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                          library_device_ms=0.0, bound_ms=0.0, entries=0, spilled=0)
+    for idx, size, values, width in calls:
+        site = sites.get(size, "hist")
+        want = ref.tally_ref(idx, size, values)
+        before = ktally.SPILLED[idx.device].clone()
+        got = ops.tally(idx, size, values, width=width)
+        seen, spilled = (ktally.SPILLED[idx.device] - before).tolist()
+        check(torch.equal(got, want), f"tally {site} bit-equal to its plain version")
+        check(seen == idx.shape[0], f"tally {site} read every entry: {seen}")
+        ones = torch.ones_like(idx) if values is None else values
+        s = torch.where(idx < 0, idx + size, idx)
+        s = torch.where((s < 0) | (s >= size), size, s)
+
+        def run():
+            return ops.tally(idx, size, values, width=width)
+
+        def library():
+            out = torch.zeros(size + 1, dtype=torch.int64, device=device)
+            return out.scatter_add_(0, s, ones)
+
+        r = dict(
+            shape=f"idx[{idx.shape[0]}]i64 table {size}"
+                  f"{'' if width is None else f' rows of {width}'}"
+                  f" {'ones' if values is None else 'values'}",
+            max_abs_err=0, ms=time_cuda(torch, run), host_ms=host_ms(torch, run),
+            device_ms=device_ms(torch, run),
+            plain_ms=time_cuda(torch, lambda: ref.tally_ref(idx, size, values)),
+            library_ms=time_cuda(torch, library), library_device_ms=device_ms(torch, library),
+            bytes=int(ops.tally_cost(idx, size, values)[1]), window=ktally.window(size, width),
+            entries=seen, spilled=spilled, spilled_pct=100 * spilled / max(seen, 1),
+        )
+        r["bound_ms"] = bound_ms(r["bytes"])
+        emit(f"phase2b tally {site}", **r)
+        out[f"tally {site}"] = r
+        for k in epoch:
+            epoch[k] += r[k] or 0
+    epoch["spilled_pct"] = 100 * epoch["spilled"] / max(epoch["entries"], 1)
+    emit("phase2b tally epoch", **epoch)
     return out
 
 
@@ -2538,7 +2641,11 @@ def autotune_64k(torch, np):
     torch.cuda.synchronize()
     after = ops.launch_counts()
     launches = {k: launches[k] + after[k] for k in launches}
-    check(not any(launches.values()), f"the tuner's path launches no kernel: {launches}")
+    # the online legs' live manager ticks alone (three tally an epoch); the
+    # search, the replays and the bursts tick as fleets, under vmap
+    check(not any(v for k, v in launches.items() if k != "tally")
+          and launches["tally"] > 0 and launches["tally"] % 3 == 0,
+          f"the tuner's path launches tally only, from the live manager: {launches}")
     return search, winner, replays, online, retunes, launches
 
 
@@ -3818,7 +3925,8 @@ def kernel_memory(torch, np, device) -> dict:
     """Phase 24's kernel checks: each launched kernel alone at one shape of
     PERF.md §6's table (``flash_attention`` at the lm-decode prompt,
     ``paged_attention`` at yi-6b's decode batch, ``hot_bins`` at 531,470
-    ids over 1,048,576 pages, ``page_move`` at the 16-entry expert swap),
+    ids over 1,048,576 pages, ``tally`` at the tick's 32 (tenant, tier)
+    sums over 1,048,576 pages, ``page_move`` at the 16-entry expert swap),
     the tracker's bytes (the kernel's new outputs and workspace) equal to
     the allocator's over the call; ``page_move`` cold, its workspace made
     and grown (88 MiB of scratch), then warm (nothing). Each call runs
@@ -3843,11 +3951,14 @@ def kernel_memory(torch, np, device) -> dict:
     pages = 1 << 20
     counts = torch.randint(0, 1 << 10, (pages,), generator=g, device=device, dtype=torch.int32)
     ids = torch.randint(0, pages, (531_470,), generator=g, device=device, dtype=torch.int32)
+    ids64 = torch.randint(0, 33, (pages,), generator=g, device=device)
+    counts64 = counts.to(torch.int64)
     paged = paged_inputs(torch, np, bf16, device)
     calls = (
         ("flash_attention", lambda: ops.flash_attention(q, *kv)),
         ("paged_attention", lambda: ops.paged_attention(*paged)),
         ("hot_bins", lambda: ops.hot_bins(ids, counts)),
+        ("tally", lambda: ops.tally(ids64, 32, counts64)),
         ("page_move_cold", lambda: ops.page_move(pool, src, dst)),
         ("page_move_warm", lambda: ops.page_move(pool, src, dst)),
     )
@@ -4199,6 +4310,8 @@ def main() -> int:
 
     moe_cfg = get_config("qwen2-moe-a2.7b")
     kern = kernel_checks(torch, np, device)
+    kern.update(tally_checks(torch, np, device))
+    free_device(torch)
     page_move_widths(torch, np, device, "yi-6b")
     moves = page_move_widths(torch, np, device, "qwen2-moe-a2.7b")
     moves["expert5.5m"] = page_move_experts(torch, np, device, moe_cfg)
@@ -4466,10 +4579,12 @@ def main() -> int:
                       "src/repro/kernels/page_copy.py:68"),
         "hot_bins": ("src/repro_torch/kernels/csrc/hot_bins.cu",
                      "src/repro/kernels/hot_bins.py:59"),
+        "tally": ("src/repro_torch/kernels/csrc/tally.cu",
+                  "none (the JAX package's tick scatters in XLA)"),
     }
     rows = []
     for name, (src, replaces) in sources.items():
-        k = kern[name]
+        k = kern["tally hist" if name == "tally" else name]
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": res["launches"][name], "max_abs_err": k["max_abs_err"],
@@ -4504,6 +4619,8 @@ def main() -> int:
         {"path": "scenario-1M", "launches": sc10_launches["page_move"]},
         {"path": "scenario-gpu-vs-cpu", "launches": sc11_launches["page_move"]},
     ]
+    by_name["tally"]["shapes"] = [shape_entry(kern[f"tally {site}"], "kvs-gups-8m cell", None)
+                                  for site in ("sums", "bins")]
     by_name["page_copy"]["shapes"] = [
         {"path": "scenario-1M", "launches": sc10_launches["page_copy"]},
         {"path": "scenario-gpu-vs-cpu", "launches": sc11_launches["page_copy"]},

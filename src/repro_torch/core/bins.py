@@ -19,7 +19,20 @@ import torch
 
 from repro_torch.core.tiling import tiled_cumsum
 from repro_torch.core.types import MASK32, OwnerSegments, PageState, TenantState
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import bit_length
+
+
+def tally(idx: torch.Tensor, size: int, values: Optional[torch.Tensor] = None, *,
+          width: Optional[int] = None) -> torch.Tensor:
+    """int64[size]: ``zeros(size).at[idx].add(values, mode="drop")``, ones
+    when ``values`` is None (``ops.tally``: on the card, the ``tally``
+    kernel). The fleet's vmapped tick (core/fleet.py) passes functorch
+    batched tensors, which a ctypes kernel cannot take: they keep
+    ``ref.tally_ref``'s ``scatter_add``, whose batching rule batches."""
+    if any(t is not None and torch._C._functorch.is_batchedtensor(t) for t in (idx, values)):
+        return ref.tally_ref(idx, size, values)
+    return ops.tally(idx, size, values, width=width)
 
 
 def seg_sums(values_sorted: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
@@ -80,10 +93,7 @@ def accumulate_and_count(
 
     over = touched & (new_count >= cool_threshold(num_bins)) & (pages.owner >= 0)
     if segs is not None:
-        idx = torch.where(over, owner, T)
-        hits = torch.zeros(T + 1, dtype=torch.int64, device=idx.device)
-        hits = hits.scatter_add(0, idx, torch.ones_like(idx))  # batches under vmap
-        cooled = hits[:T] > 0
+        cooled = tally(torch.where(over, owner, T), T) > 0  # T: dropped
     else:
         if owner_onehot is None:
             owner_onehot = pages.owner.to(torch.int64)[None, :] == torch.arange(

@@ -28,9 +28,10 @@ Bit-parity notes (the reference is the JAX package's ``core/policy.py``):
   * u32 values live in int64 and are masked where the reference wraps;
     ``eff.astype(int32)`` of a u32 count >= 2^31 wraps negative there, and
     :func:`_i32` reproduces it.
-  * ``.at[i].add/set(..., mode="drop")`` becomes a write into one spare
-    slot that is sliced off; negative indices are first wrapped from the
-    end, as the reference's scatter normalises them.
+  * ``.at[i].add(..., mode="drop")`` is ``bins.tally`` and
+    ``.at[i].set(..., mode="drop")`` a write into one spare slot that is
+    sliced off; negative indices wrap once from the end first, as the
+    reference's scatter normalises them.
   * Every scatter-set writes equal values for duplicate indices, so it is
     deterministic on the card.
   * The occupancy prefix sum keeps the reference's two branches: one packed
@@ -91,17 +92,6 @@ _I64 = torch.int64
 def _i32(x: torch.Tensor) -> torch.Tensor:
     """The int32 value of a u32 held in int64 (two's-complement wrap)."""
     return ((x + 2**31) & MASK32) - 2**31
-
-
-def _scatter_add(size: int, idx: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """``zeros(size).at[idx].add(values, mode="drop")``: negative indices
-    wrap from the end, out-of-range ones land in a spare slot."""
-    idx = torch.where(idx < 0, idx + size, idx)
-    idx = torch.where((idx < 0) | (idx >= size), size, idx)
-    out = torch.zeros(size + 1, dtype=values.dtype, device=idx.device)
-    # scatter_add, not index_add: under vmap (core/fleet.py) index_add's
-    # batching rule loops over the machines; scatter_add's does not
-    return out.scatter_add(0, idx, values)[:size]
 
 
 def _set_where(base: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
@@ -293,8 +283,8 @@ def _epoch_core(
         if segs is not None:
             own_ok = pages.owner >= 0
             idx = torch.where(own_ok & is_fast, owner32, torch.where(own_ok, T + owner32, 2 * T))
-            tbl = _scatter_add(2 * T + 1, idx, sampled) & MASK32
-            s_fast, s_slow = tbl[:T], tbl[T : 2 * T]
+            tbl = bins.tally(idx, 2 * T, sampled) & MASK32  # 2T: dropped
+            s_fast, s_slow = tbl[:T], tbl[T:]
         else:
             zero = torch.zeros_like(sampled)
             s_fast = torch.where(oh & is_fast[None, :], sampled[None, :], zero).sum(1) & MASK32
@@ -324,7 +314,8 @@ def _epoch_core(
         flat = torch.where(
             slow_cand, owner * C + key, torch.where(fast_cand, T * C + owner * C + key, 2 * T * C)
         )
-        hist2 = _scatter_add(2 * T * C + 1, flat, torch.ones_like(flat))
+        # the table read as 2T + 1 rows of C counts: its low counts stay on chip
+        hist2 = bins.tally(flat, 2 * T * C + 1, width=C)
         hist_slow = hist2[: T * C].reshape(T, C)
         hist_fast = hist2[T * C : 2 * T * C].reshape(T, C)
         cum_slow = tiled_cumsum(hist_slow, axis=1)

@@ -50,6 +50,7 @@ from repro_torch.kernels import hot_bins as _hb
 from repro_torch.kernels import page_copy as _pc
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import tally as _ty
 from repro_torch.launch.partitioning import attention_on_shards
 
 
@@ -98,6 +99,13 @@ def hot_bins_cost(page_ids, counts_in, num_bins: int = 6) -> Tuple[float, float]
     """No floating-point work; the ids read, the counts read and written and
     the bins written."""
     return 0.0, float(_nbytes(page_ids) + 3 * counts_in.numel() * 4)
+
+
+def tally_cost(idx, size: int, values=None, *, width=None) -> Tuple[float, float]:
+    """No floating-point work; the indices and values read and the table
+    written once."""
+    vbytes = 0 if values is None else _nbytes(values)
+    return 0.0, float(_nbytes(idx) + vbytes + 8 * size)
 
 
 def page_copy_cost(src_pool, dst_pool, src_ids, dst_ids) -> Tuple[float, float]:
@@ -179,6 +187,17 @@ def hot_bins(page_ids: torch.Tensor, counts_in: torch.Tensor, *, num_bins: int =
                 page_ids, counts_in, num_bins=num_bins)
 
 
+def tally(idx: torch.Tensor, size: int, values: Optional[torch.Tensor] = None, *,
+          width: Optional[int] = None) -> torch.Tensor:
+    """int64[size]: ``values`` (ones when None) added at the int64 ``idx``,
+    a negative index wrapped once from the end, one still outside [0, size)
+    dropped; see ``ref.tally_ref``. ``width`` reads the table as rows of that
+    many slots for the kernel's on-chip window; the result does not depend
+    on it."""
+    return _run("tally", idx, _ty.tally, ref.tally_ref, tally_cost, idx, size, values,
+                width=width)
+
+
 def page_copy(src_pool, dst_pool, src_ids, dst_ids):
     """In place ``dst_pool[dst_ids] = src_pool[src_ids]``; returns dst_pool."""
     return _run("page_copy", dst_pool, _pc.page_copy, ref.page_copy_ref, page_copy_cost,
@@ -228,10 +247,10 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, by kernel name."""
-    return {**_pc.LAUNCHES, **_hb.LAUNCHES, **_pa.LAUNCHES, **_fa.LAUNCHES}
+    return {**_pc.LAUNCHES, **_hb.LAUNCHES, **_pa.LAUNCHES, **_fa.LAUNCHES, **_ty.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_pc.LAUNCHES, _hb.LAUNCHES, _pa.LAUNCHES, _fa.LAUNCHES):
+    for counts in (_pc.LAUNCHES, _hb.LAUNCHES, _pa.LAUNCHES, _fa.LAUNCHES, _ty.LAUNCHES):
         for name in counts:
             counts[name] = 0

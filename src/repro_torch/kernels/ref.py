@@ -36,6 +36,21 @@ def hot_bins_ref(page_ids: torch.Tensor, counts_in: torch.Tensor, num_bins: int)
     return counts, bins.to(torch.int32)
 
 
+def tally_ref(idx: torch.Tensor, size: int, values=None, *, width=None) -> torch.Tensor:
+    """int64[size]: ``zeros(size).at[idx].add(values, mode="drop")``, ones
+    when ``values`` is None: a negative index wraps once from the end, one
+    still outside [0, size) lands in a spare slot that is cut off. ``width``
+    is the kernel's layout of the table on chip and changes nothing here."""
+    if values is None:
+        values = torch.ones_like(idx)
+    idx = torch.where(idx < 0, idx + size, idx)
+    idx = torch.where((idx < 0) | (idx >= size), size, idx)
+    out = torch.zeros(size + 1, dtype=values.dtype, device=idx.device)
+    # scatter_add, not index_add: under vmap (core/fleet.py) index_add's
+    # batching rule loops over the machines; scatter_add's does not
+    return out.scatter_add(0, idx, values)[:size]
+
+
 def page_copy_ref(src_pool, dst_pool, src_ids, dst_ids):
     """``dst_pool[dst_ids[i]] = src_pool[src_ids[i]]``, in place; returns
     ``dst_pool``. Ids are in range; padding entries point at a reserved

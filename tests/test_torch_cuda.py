@@ -726,3 +726,152 @@ def test_cuda_kernel_counted_inside_a_backward(cuda):
     torch.cuda.synchronize()
     assert got == want and want[3] == {"flash_attention": 1}
     assert ops.launch_counts()["flash_attention"] == 1
+
+
+# -------------------------------------------------------------------- tally
+# the MaxMem tick's three tables at the benchmark cell's T = 16 and C = 4,096:
+# the (tenant, tier) sums (32 slots; 33 with a spare), the cooling hits (16;
+# 17) and the candidate histogram (2TC + 1 slots read as rows of C)
+TALLY_T, TALLY_C = 16, 4096
+TALLY_HIST = 2 * TALLY_T * TALLY_C + 1
+TALLY_SIZES = (16, 17, 32, 33, TALLY_HIST)
+TALLY_PAGES = (1, 4_608, 65_537, 8_388_608)
+TALLY_CASES = [(size, P, dist, vals) for size in TALLY_SIZES for P in TALLY_PAGES
+               for dist in ("one_slot", "uniform", "beyond_window", "cell")
+               for vals in ("ones", "zero", "u32max")
+               if dist != "beyond_window" or size == TALLY_HIST]
+
+
+def _tally_width(size):
+    return TALLY_C if size == TALLY_HIST else None
+
+
+def _tally_idx(dist, size, P, g, device):
+    """int64[P] indices: all on one slot; uniform over the table and past
+    both ends; all beyond the kernel's on-chip window; or as the cell's tick
+    makes them (two tenants of the cell's split, 22% fast, counts mostly 0
+    and 1, a few unowned pages)."""
+    from repro_torch.kernels import tally as ktally
+
+    def rand(lo, hi):
+        return torch.randint(lo, hi, (P,), generator=g, device=device)
+
+    if dist == "one_slot":
+        return torch.full((P,), 3 % size, dtype=torch.int64, device=device)
+    if dist == "uniform":
+        return rand(-size - 3, size + 3)
+    if dist == "beyond_window":  # columns past the window's, every full row
+        rows = -(-size // TALLY_C)
+        col0 = -(-ktally.window(size, TALLY_C) // rows)
+        return rand(0, size // TALLY_C) * TALLY_C + rand(col0, TALLY_C)
+    u = torch.rand(P, generator=g, device=device)
+    owner = (torch.arange(P, device=device) * 8_388_608 // max(P, 1) >= 4_660_338).long()
+    fast = u < 0.222
+    key = (torch.rand(P, generator=g, device=device).log() / -1.5).long()  # mostly 0 and 1
+    key = torch.clamp(key, max=TALLY_C - 1)
+    none = torch.rand(P, generator=g, device=device) < 0.01
+    T, C = TALLY_T, TALLY_C
+    if size == TALLY_HIST:
+        idx = torch.where(fast, T * C + owner * C + key, owner * C + key)
+        return torch.where(none, 2 * T * C, idx)
+    if size in (32, 33):
+        return torch.where(none, 2 * T, torch.where(fast, owner, T + owner))
+    return torch.where(u < 1e-4, owner, torch.full_like(owner, T))  # cooling hits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,P,dist,vals", TALLY_CASES)
+def test_cuda_tally_matches_plain(cuda, size, P, dist, vals):
+    """``ops.tally`` on the card against ``ref.tally_ref``, bit for bit; one
+    launch a call; ``SPILLED`` gains the entries read and those whose
+    position lies beyond the window, counted here on the host."""
+    from repro_torch.kernels import tally as ktally
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(size * 31 + P)
+    idx = _tally_idx(dist, size, P, g, cuda)
+    values = {"ones": None, "zero": torch.zeros_like(idx),
+              "u32max": torch.full_like(idx, 2**32 - 1)}[vals]
+    width = _tally_width(size)
+    want = ref.tally_ref(idx, size, values)
+    pair = ktally.SPILLED.get(idx.device)
+    before = torch.zeros(2, dtype=torch.int64) if pair is None else pair.cpu().clone()
+    launches = ktally.LAUNCHES["tally"]
+    got = ops.tally(idx, size, values, width=width)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert ktally.LAUNCHES["tally"] == launches + 1
+    w = width or size
+    rows = -(-size // w)
+    s = torch.where(idx < 0, idx + size, idx)
+    ok = (s >= 0) & (s < size) & (vals != "zero")
+    beyond = int((ok & ((s % w) * rows + s // w >= ktally.window(size, width))).sum())
+    assert (ktally.SPILLED[idx.device].cpu() - before).tolist() == [P, beyond]
+    if dist == "beyond_window":
+        assert beyond == (0 if vals == "zero" else P)
+
+
+@pytest.mark.cuda
+def test_cuda_tally_back_to_back(cuda):
+    """The tick's three shapes, twice over, launched back to back on one
+    stream with no synchronisation between them, each equal to its plain
+    version."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    P = 1 << 20
+    calls = []
+    for rep in range(2):
+        for size in (32, 16, TALLY_HIST):
+            idx = _tally_idx("cell", size, P, g, cuda)
+            values = torch.randint(0, 50, (P,), generator=g, device=cuda) if size == 32 else None
+            calls.append((idx, size, values, ops.tally(idx, size, values,
+                                                       width=_tally_width(size))))
+    torch.cuda.synchronize()
+    for idx, size, values, got in calls:
+        assert torch.equal(got, ref.tally_ref(idx, size, values)), size
+
+
+@pytest.mark.cuda
+def test_cuda_manager_epochs_match_cpu(cuda):
+    """A 1M-page manager (two tenants, the queue) run for 20 epochs of the
+    policy tick on the card equals the same run on the CPU, every state
+    word, plan and statistic, with the sampler's deviates shared; the card
+    launches three ``tally`` a epoch."""
+    from repro_torch.core import policy
+    from repro_torch.core.manager import CentralManager
+    from repro_torch.core.types import state_from_numpy, state_to_numpy
+    from repro_torch.kernels import tally as ktally
+
+    P, E = 1 << 20, 20
+    m = CentralManager(num_pages=P, fast_capacity=P // 4, migration_budget=P // 32,
+                       max_tenants=16, queue_size=P // 16, migration_bandwidth=P // 64,
+                       device="cpu")
+    m.allocate(m.register(0.1), P * 5 // 9)
+    m.allocate(m.register(1.0), P * 4 // 9)
+    m._ensure_segs()  # the owner segments the tick's sums and cooling hits take
+    start = state_to_numpy(m._state)._replace(rng=np.zeros(2, np.uint32))
+    rng = np.random.default_rng(6)
+    lam = np.where(rng.random(P) < 0.23, 30.0, 1.0)
+    counts = torch.as_tensor(rng.poisson(lam, (E, P)))
+    z = torch.as_tensor(rng.standard_normal((E, P)).astype(np.float32))
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        launches = ktally.LAUNCHES["tally"]
+        runs.append(policy.multi_epoch(
+            state_from_numpy(start, dev), m.params, counts.to(dev), k=E, max_tenants=16,
+            plan_size=m.plan_size, z=z.to(dev)))
+        torch.cuda.synchronize()
+        assert ktally.LAUNCHES["tally"] - launches == (3 * E if dev.type == "cuda" else 0)
+    (gs, gp, gt, gf), (cs, cp, ct, cf) = runs
+    a, b = state_to_numpy(gs), state_to_numpy(cs)
+    for part in ("pages", "tenants", "queue"):
+        for x, y in zip(getattr(a, part), getattr(b, part)):
+            assert np.asarray(x).tobytes() == np.asarray(y).tobytes(), part
+    assert np.asarray(a.pending).tobytes() == np.asarray(b.pending).tobytes()
+    for x, y in ((gp.promote, cp.promote), (gp.demote, cp.demote), (gf, cf)):
+        assert torch.equal(x.cpu(), y)
+    for f in gt._fields:
+        x, y = getattr(gt, f), getattr(ct, f)
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x.cpu(), y), f
+    assert int(gt.promoted.sum()) > 0

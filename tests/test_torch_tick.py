@@ -30,6 +30,7 @@ from repro_torch.core import policy as tpolicy
 from repro_torch.core import sampler as tsampler
 from repro_torch.core import types as ttypes
 from repro_torch.core.manager import CentralManager as TorchManager
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
 CPU = torch.device("cpu")
@@ -504,3 +505,182 @@ def test_clt_deviates_are_exactly_standardised():
     d = tpolicy.clt_deviates(gen, 2, 1000, CPU)
     assert d.shape == (2, 1000) and d.dtype == torch.float32
     assert set(torch.unique(d).tolist()) <= {v / 2 - 4.0 for v in range(17)}
+
+
+# -------------------------------------------------------------------- tally
+def _tally_contract(idx, size, values):
+    """The ``.at[idx].add(values, mode="drop")`` contract entry by entry: a
+    negative index wraps once from the end, one still out of range drops."""
+    out = np.zeros(size, np.int64)
+    vals = np.ones(len(idx), np.int64) if values is None else values
+    for k, v in zip(idx.tolist(), vals.tolist()):
+        k = k + size if k < 0 else k
+        if 0 <= k < size:
+            out[k] = np.int64((int(out[k]) + v + 2**63) % 2**64 - 2**63)
+    return out
+
+
+def _tally_case(name):
+    rng = np.random.default_rng(len(name))
+    size = 33
+    idx = rng.integers(0, size, 500)
+    values = None
+    if name == "negative_wraps_once":
+        idx = rng.integers(-size, 0, 500)
+    elif name == "out_of_range_dropped":
+        idx = np.concatenate([rng.integers(size, 3 * size, 200),
+                              rng.integers(-3 * size, -size, 200), idx[:100]])
+    elif name == "values":
+        values = rng.integers(-(2**40), 2**40, 500)
+        values[::3] = 0
+        values[1::7] = 2**32 - 1
+    elif name == "values_wrap_int64":
+        idx = np.zeros(4, np.int64)
+        values = np.array([2**62, 2**62, 2**62, 7], np.int64)
+    elif name == "one_slot":
+        idx = np.full(500, 5)
+    elif name == "empty":
+        idx = idx[:0]
+    elif name == "size_zero":
+        size = 0
+    return idx.astype(np.int64), size, None if values is None else values.astype(np.int64)
+
+
+@pytest.mark.parametrize("name", ["ones", "negative_wraps_once", "out_of_range_dropped", "values",
+                                  "values_wrap_int64", "one_slot", "empty", "size_zero"])
+def test_tally_ref_follows_the_scatter_add_contract(name):
+    """``ref.tally_ref`` (the kernel's plain version, which CPU and fake
+    tensors take through ``ops.tally``) against the contract."""
+    idx, size, values = _tally_case(name)
+    want = _tally_contract(idx, size, values)
+    v = None if values is None else _t(values)
+    got = tref.tally_ref(_t(idx), size, v)
+    assert got.dtype == torch.int64 and np.array_equal(got.numpy(), want)
+    assert np.array_equal(tops.tally(_t(idx), size, v, width=max(size // 4, 1)).numpy(), want)
+
+
+def _spare_slot_scatter(size, idx, values):
+    """The tick's scatter before ``tally``: every dropped entry added into
+    one spare slot past the end, sliced off."""
+    idx = torch.where(idx < 0, idx + size, idx)
+    idx = torch.where((idx < 0) | (idx >= size), size, idx)
+    out = torch.zeros(size + 1, dtype=values.dtype)
+    return out.scatter_add(0, idx, values)[:size]
+
+
+@pytest.mark.parametrize("seed,Q,huge", [(0, 0, True), (1, 256, True), (2, 256, False)])
+def test_tick_tallies_equal_the_spare_slot_scatters(seed, Q, huge, monkeypatch):
+    """The tick's three sites on random states (counts >= C and >= 2^31,
+    whose int32 keys wrap negative; unowned pages; in-flight pages barred):
+    the per-(tenant, tier) sums and cooling hits, which now drop their
+    "neither" entries past the table's end, and the candidate histogram,
+    read as rows of C counts, equal the scatters with a spare slot."""
+    P, T = 4096, 8
+    C = tpolicy.COUNT_CLAMP
+    ref, fast_cap = random_state(40 + seed, P, T, Q, huge_counts=huge)
+    pages, pending = ref.pages, (ref.pending * 40).astype(np.uint32)
+    count, last = pages.count.copy(), pages.last_cool.copy()
+    count[1::97] = 70_000  # keys clamped to C - 1
+    if huge:
+        # tenants 0 and 1 sampled nothing, so they do not cool: their pages'
+        # int32 keys of counts >= 2^31 stay negative, and their flat indices
+        # wrap from the table's end (tenant 0) or shift a row back (tenant 1)
+        quiet = pages.owner <= 1
+        pending[quiet] = 0
+        big = np.flatnonzero(quiet & (pages.owner >= 0))[::23]
+        count[big] = 2**32 - 1 - np.arange(len(big), dtype=np.uint32) * 97
+        last[big] = ref.tenants.cool_epoch[pages.owner[big]]
+    ref = ref._replace(pending=pending, pages=pages._replace(count=count, last_cool=last))
+    _, tp = params_pair(fast_cap, 128, queue=Q > 0, guards=False)
+    calls = []
+    plain = tbins.tally
+
+    def spy(idx, size, values=None, *, width=None):
+        out = plain(idx, size, values, width=width)
+        calls.append((idx, size, values, width, out))
+        return out
+
+    monkeypatch.setattr(tbins, "tally", spy)
+    tpolicy.epoch_step(ttypes.state_from_numpy(ref, CPU), tp, max_tenants=T, plan_size=128)
+    assert sorted((c[1], c[3]) for c in calls) == [(T, None), (2 * T, None),
+                                                    (2 * T * C + 1, C)]
+    for idx, size, values, width, out in calls:
+        v = torch.ones_like(idx) if values is None else values
+        spare = 1 if width is None else 0  # the sites that drop past the end
+        assert torch.equal(out, _spare_slot_scatter(size + spare, idx, v)[:size]), size
+    flat = next(c[0] for c in calls if c[3] is not None)
+    assert bool((flat == 2 * T * C).any())  # unowned and barred pages
+    assert bool(((flat >= 0) & (flat < 2 * T * C) & (flat % C == C - 1)).any())
+    assert bool((flat < 0).any()) == huge  # int32 keys of counts >= 2^31 wrap negative
+
+
+def test_vmapped_tick_takes_the_plain_path(monkeypatch):
+    """The fleet's tick runs under ``torch.func.vmap``, where the call sites'
+    inputs are functorch batched tensors: they keep ``ref.tally_ref`` and
+    launch no ``tally`` even where the kernel path is taken (here a counting
+    stand-in on the CPU), the fleet's records and states equal each machine
+    run alone through that path, and a machine alone launches three a
+    epoch."""
+    import warnings
+
+    from repro_torch.core.fleet import FleetManager
+    from repro_torch.kernels import tally as ktally
+
+    def stand_in(idx, size, values=None, *, width=None):
+        ktally.LAUNCHES["tally"] += 1
+        return tref.tally_ref(idx, size, values)
+
+    monkeypatch.setattr(tops, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(ktally, "tally", stand_in)
+    P, E = 2048, 4
+
+    def machine(s):
+        m = TorchManager(num_pages=P, fast_capacity=512, migration_budget=64 + 16 * s,
+                         max_tenants=8, sample_period=(1, 100, 400)[s], seed=s,
+                         queue_size=64, migration_bandwidth=8 + 8 * s, device="cpu")
+        for t_miss, n in ((0.1, 700), (0.5, 700), (1.0, 500)):
+            m.allocate(m.register(t_miss), n)
+        return m
+
+    counts = (np.random.default_rng(9).poisson(4, (3, E, P)) * 9).astype(np.int64)
+    fleet = FleetManager([machine(s) for s in range(3)])
+    before = ktally.LAUNCHES["tally"]
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*batching rule.*")
+        res = fleet.run_epochs(E, counts=counts, collect_plans=True)
+    assert ktally.LAUNCHES["tally"] == before
+    for s in range(3):
+        alone = machine(s)
+        want = alone.run_epochs(E, counts=counts[s], collect_plans=True)
+        got = res.machine(s)
+        for f in ("fmmr_now", "fmmr_ewma", "fast_pages", "promoted", "demoted", "cooled"):
+            a, b = getattr(got.stats, f), getattr(want.stats, f)
+            assert torch.equal(a, b.to(a.dtype)), (s, f)
+        _assert_tree_equal(ttypes.state_to_numpy(fleet.machines[s]._state),
+                           ttypes.state_to_numpy(alone._state), f"state[{s}]")
+    assert ktally.LAUNCHES["tally"] - before == 3 * 3 * E
+
+
+def test_tally_takes_the_plain_version_off_the_card():
+    """CPU and fake tensors take ``ref.tally_ref`` through ``ops.tally`` and
+    launch nothing; a cost counter reads the kernel's bytes (indices and
+    values read, the table written, once) either way; the CUDA wrapper
+    refuses anything but contiguous 1-D int64 CUDA tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis import hlo_cost
+    from repro_torch.kernels import tally as ktally
+
+    before = tops.launch_counts()
+    idx = torch.tensor([0, 3, -1, 7, 2, -9])
+    assert tops.tally(idx, 4).tolist() == [1, 0, 1, 2]
+    assert tops.tally(idx, 4, idx * 10, width=2).tolist() == [0, 0, 20, 20]
+    with FakeTensorMode() as mode:
+        out = tops.tally(mode.from_tensor(idx), 4, width=2)
+    assert out.shape == (4,) and out.dtype == torch.int64
+    assert tops.launch_counts() == before
+    c = hlo_cost.module_cost(lambda i, v: tops.tally(i, 4, v), idx, idx)
+    assert dict(c.kernel_calls) == {"tally": 1} and c.kernel_bytes == 2 * 6 * 8 + 4 * 8
+    for bad in (idx, idx.to(torch.int32), idx.reshape(2, 3)):
+        with pytest.raises(ValueError, match="CUDA"):
+            ktally.tally(bad, 4)
